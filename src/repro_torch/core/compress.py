@@ -1,0 +1,341 @@
+"""Single-device NUMARCK compress / decompress driver (top-k strategy).
+
+The port's counterpart of the reference's ``core/compress.py``.  Device
+stages, on the compressor's device:
+
+  1. `_analyze`     -- ratios and their global range, candidate-bin ids
+                       (change-ratio kernel), histogram (histogram
+                       kernel), stable descending sort, auto-B
+  2. `_encode_topk` -- rank LUT + per-element index assignment, exception
+                       compaction, bit-packing of the whole marker-padded
+                       table (bit-pack kernel)
+
+then the shared host finalize of ``core.pipeline``.  The REF_RECONSTRUCTED
+chain advances through the fused chain-advance kernel when it is
+device-resident.  On ``device="cpu"`` every kernel call takes its plain
+PyTorch version; both give the reference's steps byte for byte.
+
+Decompression takes the host route, as the reference does for the zlib,
+raw, bz2 and lzma codecs.  The equal-width, log-scale and k-means
+strategies raise ``NotImplementedError`` until their slice (ROADMAP.md).
+"""
+from __future__ import annotations
+
+from collections import deque
+from concurrent.futures import Future
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import binning, blocks, entropy, ratios, select_b
+from repro_torch.core import chain as chainmod
+from repro_torch.core import pipeline as pipe
+from repro_torch.core.overlap import FinalizeQueue
+from repro_torch.core.pipeline import DeviceEncoded
+from repro_torch.core.types import (REF_RECONSTRUCTED, STRATEGY_TOPK,
+                                    CompressedStep, NumarckParams)
+from repro_torch.faults.errors import IntegrityError
+from repro_torch.kernels import ops as kops
+
+
+def _require_topk(params: NumarckParams) -> None:
+    if params.strategy != STRATEGY_TOPK:
+        raise NotImplementedError(
+            f"strategy {params.strategy!r} is not ported yet: only top-k "
+            "is (ROADMAP.md, Queue 1 item 7)")
+
+
+def _to_device(x, device: torch.device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.tensor(np.asarray(x), device=device)
+
+
+def _analyze(prev: torch.Tensor, curr: torch.Tensor, params: NumarckParams,
+             elem_bytes: int) -> dict:
+    """Ratios' range, candidate bins, histogram, descending sort, auto-B.
+
+    The range pass is plain PyTorch (the reference's ``ratio_range``);
+    the change-ratio kernel then recomputes the ratios with the domain in
+    hand, as the reference's sharded analyze does.
+    """
+    r, valid = ratios.change_ratios(prev, curr)
+    lo, hi = ratios.ratio_range(r, valid)
+    del r, valid
+    domain_lo, width = ratios.histogram_domain(lo, hi, params.error_bound,
+                                               params.max_bins)
+    _, bin_ids = kops.change_ratio_bins(prev, curr, domain_lo, width,
+                                        max_bins=params.max_bins)
+    counts = kops.histogram(bin_ids, max_bins=params.max_bins)
+    counts_desc, ids_desc = binning.sort_histogram(counts)
+    b_auto, est_sizes = select_b.choose_b(counts_desc, curr.numel(),
+                                          elem_bytes, params.b_max)
+    return dict(bin_ids=bin_ids, ids_desc=ids_desc, domain_lo=domain_lo,
+                width=width, b_auto=b_auto, est_sizes=est_sizes, lo=lo,
+                hi=hi)
+
+
+def _encode_topk(bin_ids, ids_desc, b_bits: int, k_eff: int, max_bins: int):
+    marker = (1 << b_bits) - 1
+    lut = binning.rank_lut(ids_desc[:k_eff], k_eff, max_bins)
+    # rank_lut fills non-selected with k_eff; remap to the B-bit marker.
+    ranks = lut[bin_ids.clamp(0, max_bins - 1).to(torch.int64)]
+    ranks = torch.where(ranks >= k_eff, marker, ranks)
+    return torch.where(bin_ids >= 0, ranks, marker).to(torch.int32)
+
+
+def _pack_blocks_device(idx: torch.Tensor, b_bits: int,
+                        block_elems: int) -> List[bytes]:
+    """Pack the whole marker-padded table in one kernel launch, fetch the
+    words once and slice them per block on the host."""
+    n = idx.numel()
+    nblocks = -(-n // block_elems)
+    padded = torch.full((nblocks * block_elems,), (1 << b_bits) - 1,
+                        dtype=torch.int32, device=idx.device)
+    padded[:n] = idx
+    words = kops.pack_bits(padded, b_bits=b_bits)
+    raw = words.cpu().numpy().astype("<u4", copy=False).tobytes()
+    return pipe.split_packed(raw, nblocks, block_elems, b_bits)
+
+
+def encode_device(prev, curr, params: NumarckParams,
+                  need_host_idx: bool = True, device=None) -> DeviceEncoded:
+    """Device stages for one step: analyze + top-k indexing + packing.
+
+    `prev`/`curr` may be host ndarrays or tensors (a device-resident chain
+    feeds its state straight back in).  Tensors run on their own device;
+    ndarrays are copied to ``device`` (CUDA unless the caller asks for
+    another).  ``need_host_idx=False`` skips the host copy of the index
+    table, which only a host-resident chain reads.
+    """
+    _require_topk(params)
+    if isinstance(curr, torch.Tensor):
+        dev = curr.device
+    elif isinstance(prev, torch.Tensor):
+        dev = prev.device
+    else:
+        dev = chainmod.resolve_device(device)
+    prev_t = _to_device(prev, dev)
+    curr_t = _to_device(curr, dev)
+    if prev_t.shape != curr_t.shape:
+        raise ValueError("temporal steps must share a shape")
+    dtype = np.dtype(str(curr_t.dtype).removeprefix("torch."))
+    n = curr_t.numel()
+    a = _analyze(prev_t.reshape(-1), curr_t.reshape(-1), params,
+                 dtype.itemsize)
+    b_bits = int(params.b_bits if params.b_bits is not None
+                 else a["b_auto"])
+    k_eff = min((1 << b_bits) - 1, params.max_bins)
+    idx = _encode_topk(a["bin_ids"], a["ids_desc"], b_bits, k_eff,
+                       params.max_bins)
+    centers = pipe.topk_centers(a["ids_desc"][:k_eff].cpu().numpy(), k_eff,
+                                float(a["domain_lo"]), float(a["width"]))
+    centers = pipe.round_centers(centers, dtype)
+    be = params.block_elems(b_bits)
+    marker = (1 << b_bits) - 1
+    exc_counts = exc_pos = packed = None
+    if n:
+        exc_counts, exc_pos = kops.exception_compact(idx, n, marker, be)
+        packed = _pack_blocks_device(idx, b_bits, be)
+    enc = pipe.EncodedIndices(
+        idx=idx.cpu().numpy() if need_host_idx else None, b_bits=b_bits,
+        block_elems=be, n=n, packed=packed, exc_positions=exc_pos,
+        exc_block_counts=exc_counts)
+    meta = {"b_auto": int(a["b_auto"]),
+            "est_sizes": a["est_sizes"].numpy().tolist(),
+            "ratio_min": float(a["lo"]), "ratio_max": float(a["hi"])}
+    return DeviceEncoded(enc=enc, centers=centers,
+                         domain_lo=float(a["domain_lo"]),
+                         width=float(a["width"]), meta=meta, idx_dev=idx,
+                         curr_dev=(curr if isinstance(curr, torch.Tensor)
+                                   else None))
+
+
+def make_anchor(arr: np.ndarray, params: NumarckParams) -> CompressedStep:
+    """Losslessly stored first iteration, in entropy-coded blocks."""
+    return pipe.finalize_anchor(arr, params)
+
+
+def compress_step(prev: np.ndarray, curr: np.ndarray, params: NumarckParams,
+                  device=None) -> CompressedStep:
+    """Compress `curr` against the reference state `prev` (Eq. 1/4)."""
+    dev = encode_device(prev, curr, params, need_host_idx=False,
+                        device=device)
+    return pipe.finalize_step(np.asarray(curr), dev.enc, dev.centers,
+                              dev.domain_lo, dev.width, params, dev.meta)
+
+
+def decode_anchor(step: CompressedStep) -> np.ndarray:
+    """Host reconstruction of a losslessly stored anchor step."""
+    raw = b"".join(entropy.decompress_blocks(step.index_blocks, step.codec))
+    try:
+        return np.frombuffer(raw, dtype=step.dtype).reshape(step.shape).copy()
+    except ValueError as e:
+        raise IntegrityError(
+            f"anchor decode produced {len(raw)} bytes, expected "
+            f"{step.n * np.dtype(step.dtype).itemsize} for shape "
+            f"{tuple(step.shape)} {step.dtype} ({e}) -- payload corrupt "
+            "or truncated") from e
+
+
+def _decode_index_host(step: CompressedStep) -> np.ndarray:
+    """Inflate every index block into one (n,) int32 buffer, block-parallel
+    over the shared entropy pool for payloads worth the dispatch."""
+    idx = np.empty(step.n, np.int32)
+    slices = list(blocks.block_slices(step.n, step.block_elems))
+
+    def inflate(bi: int) -> None:
+        s, e = slices[bi]
+        idx[s:e] = blocks.inflate_block(step.index_blocks[bi], e - s,
+                                        step.b_bits,
+                                        codec=step.codec_for_block(bi))
+
+    payload = sum(len(b) for b in step.index_blocks)
+    if len(slices) > 1 and payload >= entropy._MIN_PARALLEL_BYTES:
+        list(entropy._shared_pool().map(inflate, range(len(slices))))
+    else:
+        for bi in range(len(slices)):
+            inflate(bi)
+    return idx
+
+
+def decompress_step(step: CompressedStep,
+                    prev: Optional[np.ndarray]) -> np.ndarray:
+    """Reconstruct R_i = R_{i-1} * (1 + center)  (corrected Eq. 4), on the
+    host, in the step's source precision (``reconstruction_dtype``)."""
+    if step.is_anchor:
+        return decode_anchor(step)
+    if prev is None:
+        raise ValueError("non-anchor steps need the previous state")
+    cdt = pipe.reconstruction_dtype(step.dtype)
+    marker = (1 << step.b_bits) - 1
+    idx = _decode_index_host(step)
+    prev_flat = np.asarray(prev).reshape(-1).astype(cdt, copy=False)
+    centers = np.concatenate([step.centers,
+                              np.zeros(marker + 1 - step.centers.size)
+                              ]).astype(cdt)
+    out = prev_flat * (1 + centers[idx])
+    if step.n_incompressible:
+        # Exception values are compacted in stream order == block order.
+        out[idx == marker] = step.incomp_values.astype(cdt)
+    return out.astype(step.dtype).reshape(step.shape)
+
+
+class TemporalCompressor:
+    """Streaming compressor over a temporal series (paper Sec. III).
+
+    ``overlap=True`` runs the host finalize of step i on a background
+    thread while the next ``add_async`` drives the device encode of step
+    i+1; results equal the serial path.  ``chain`` picks the residency of
+    the reference chain ("auto" = on ``device``, "host", "device").
+    ``device`` defaults to CUDA; pass ``"cpu"`` for the plain versions.
+    """
+
+    def __init__(self, params: NumarckParams = NumarckParams(),
+                 overlap: bool = False, chain: str = chainmod.CHAIN_AUTO,
+                 device=None):
+        if chain not in chainmod.RESIDENCIES:
+            raise ValueError(f"unknown chain residency {chain!r}")
+        _require_topk(params)
+        self.params = params
+        self.overlap = overlap
+        self.chain = chain
+        self.device = chainmod.resolve_device(device)
+        self._chain: Optional[chainmod.ReferenceChain] = None
+        self._q = FinalizeQueue(overlap)
+        self._step = 0
+
+    def add_async(self, arr: np.ndarray) -> "Future[CompressedStep]":
+        """Device-encode `arr` now; return a future of the finalized step.
+        The reference chain advances before returning."""
+        arr = np.asarray(arr)
+        step_i, self._step = self._step, self._step + 1
+        if self._chain is None or self._chain.empty:
+            self._chain = chainmod.make_reference_chain(self.chain,
+                                                        arr.dtype,
+                                                        self.device)
+            self._chain.seed(arr)
+            return self._q.submit(pipe.finalize_anchor, arr.copy(),
+                                  self.params,
+                                  label=f"anchor step {step_i}")
+        on_device = self._chain.residency == chainmod.CHAIN_DEVICE
+        # One upload of `curr`, shared by the encode and the chain advance;
+        # a private copy, since callers may reuse their buffers at once.
+        curr_in = torch.tensor(arr, device=self.device) if on_device else arr
+        dev = encode_device(self._chain.peek(), curr_in, self.params,
+                            need_host_idx=not on_device, device=self.device)
+        if self.params.reference == REF_RECONSTRUCTED:
+            self._chain.advance(dev, arr)
+        else:
+            self._chain.replace(arr)
+        # The background finalize reads `arr` (exception values).
+        curr = arr.copy() if self.overlap else arr
+        return self._q.submit(pipe.finalize_step, curr, dev.enc,
+                              dev.centers, dev.domain_lo, dev.width,
+                              self.params, dev.meta,
+                              label=f"finalize step {step_i}")
+
+    def add(self, arr: np.ndarray) -> CompressedStep:
+        return self.add_async(arr).result()
+
+    def reference_state(self) -> Optional[np.ndarray]:
+        """Host copy of the current chain state (None before the anchor)."""
+        if self._chain is None or self._chain.empty:
+            return None
+        return self._chain.to_host()
+
+    def flush(self):
+        self._q.flush()
+
+    def close(self):
+        self._q.close()
+
+    def reset(self):
+        self._chain = None
+        self._step = 0
+
+
+class TemporalDecompressor:
+    """Streaming decompressor; mirrors TemporalCompressor state chaining."""
+
+    def __init__(self):
+        self._state: Optional[np.ndarray] = None
+
+    def add(self, step: CompressedStep) -> np.ndarray:
+        self._state = decompress_step(step, self._state)
+        return self._state
+
+    def reset(self):
+        self._state = None
+
+
+def compress_series(arrays, params: NumarckParams = NumarckParams(),
+                    overlap: bool = False, chain: str = chainmod.CHAIN_AUTO,
+                    device=None) -> List[CompressedStep]:
+    """Compress a temporal series on ``device`` (CUDA unless the caller
+    asks for the CPU); at most two finalizes are in flight at once."""
+    c = TemporalCompressor(params, overlap=overlap, chain=chain,
+                           device=device)
+    out: List[CompressedStep] = []
+    pending: deque = deque()
+    try:
+        for a in arrays:
+            pending.append(c.add_async(a))
+            while len(pending) > 2:
+                out.append(pending.popleft().result())
+        out.extend(f.result() for f in pending)
+        return out
+    finally:
+        c.close()
+
+
+def decompress_series(steps: List[CompressedStep]) -> List[np.ndarray]:
+    d = TemporalDecompressor()
+    return [d.add(s) for s in steps]
+
+
+__all__ = ["compress_step", "decompress_step", "make_anchor",
+           "decode_anchor", "encode_device", "DeviceEncoded",
+           "TemporalCompressor", "TemporalDecompressor", "compress_series",
+           "decompress_series"]

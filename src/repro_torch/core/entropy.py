@@ -1,0 +1,266 @@
+"""Pluggable host-side entropy stage with a parallel block dispatcher.
+
+Copy of the reference's ``core/entropy.py`` for the codecs the port has
+so far: ``zlib`` (default), ``raw`` (store), ``lzma`` and ``bz2``, plus
+the ``"auto"`` pseudo-codec (per-payload and per-block choice from a
+sampled zlib probe).  All four release the GIL in their C code, so one
+shared thread pool gives real parallel speedup.  The rANS codec arrives
+in a later slice (see ROADMAP.md).
+
+Blocks are grouped into tasks of at least ``_TARGET_TASK_BYTES`` so that
+submission overhead stays small; output is byte-identical to the serial
+loop, because per-block codec streams are independent.
+"""
+from __future__ import annotations
+
+import bz2
+import lzma
+import os
+import threading
+import zlib
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence
+
+from repro_torch.faults.errors import IntegrityError
+
+# --------------------------------------------------------------------- codecs
+
+
+class Codec:
+    """Entropy codec interface: bytes -> bytes, self-inverse via decompress."""
+
+    name: str = "abstract"
+
+    def compress(self, raw: bytes, level: int) -> bytes:
+        raise NotImplementedError
+
+    def decompress(self, blob: bytes) -> bytes:
+        raise NotImplementedError
+
+
+class ZlibCodec(Codec):
+    name = "zlib"
+
+    def compress(self, raw: bytes, level: int) -> bytes:
+        return zlib.compress(raw, level)
+
+    def decompress(self, blob: bytes) -> bytes:
+        return zlib.decompress(blob)
+
+
+class RawCodec(Codec):
+    """Store-only codec: no entropy coding."""
+
+    name = "raw"
+
+    def compress(self, raw: bytes, level: int) -> bytes:
+        return raw
+
+    def decompress(self, blob: bytes) -> bytes:
+        return blob
+
+
+class LzmaCodec(Codec):
+    """LZMA: slowest, highest ratio; level maps to preset 0-9."""
+
+    name = "lzma"
+
+    def compress(self, raw: bytes, level: int) -> bytes:
+        return lzma.compress(raw, preset=min(max(level, 0), 9))
+
+    def decompress(self, blob: bytes) -> bytes:
+        return lzma.decompress(blob)
+
+
+class Bz2Codec(Codec):
+    name = "bz2"
+
+    def compress(self, raw: bytes, level: int) -> bytes:
+        return bz2.compress(raw, compresslevel=min(max(level, 1), 9))
+
+    def decompress(self, blob: bytes) -> bytes:
+        return bz2.decompress(blob)
+
+
+DEFAULT_CODEC = "zlib"
+AUTO_CODEC = "auto"
+_REGISTRY: Dict[str, Codec] = {}
+
+
+def register_codec(codec: Codec) -> Codec:
+    _REGISTRY[codec.name] = codec
+    return codec
+
+
+def get_codec(name: str) -> Codec:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown codec {name!r}; registered: {sorted(_REGISTRY)}"
+        ) from None
+
+
+def validate_codec_id(name: str) -> str:
+    """Accept any registered codec plus the ``"auto"`` pseudo-id."""
+    if name != AUTO_CODEC:
+        get_codec(name)                  # raises on unknown codec
+    return name
+
+
+for _c in (ZlibCodec(), RawCodec(), LzmaCodec(), Bz2Codec()):
+    register_codec(_c)
+
+# ------------------------------------------------------ adaptive selection
+
+# The reference's auto policy, constant for constant: deflate a bounded
+# prefix at level 1 and read the achieved ratio.
+_AUTO_SAMPLE_BYTES = 64 << 10
+_AUTO_RAW_THRESHOLD = 0.95       # probe ratio above this -> store raw
+_AUTO_LZMA_THRESHOLD = 0.30      # probe ratio below this -> lzma pays off
+_AUTO_LZMA_MAX_BYTES = 256 << 20  # lzma latency cap on the total payload
+
+
+def _probe_one(raw: bytes, allow_lzma: bool = True) -> str:
+    """One compressibility probe -> concrete codec (the auto policy)."""
+    if not raw:
+        return DEFAULT_CODEC
+    sample = raw[:_AUTO_SAMPLE_BYTES]
+    ratio = len(zlib.compress(sample, 1)) / len(sample)
+    if ratio >= _AUTO_RAW_THRESHOLD:
+        return "raw"
+    if ratio <= _AUTO_LZMA_THRESHOLD and allow_lzma:
+        return "lzma"
+    return DEFAULT_CODEC
+
+
+def choose_codec(raws: Sequence[bytes], level: int = 6) -> str:
+    """Pick a concrete codec from the first non-empty block's probe."""
+    del level
+    total = sum(len(r) for r in raws)
+    for r in raws:
+        if r:
+            return _probe_one(r, allow_lzma=total <= _AUTO_LZMA_MAX_BYTES)
+    return DEFAULT_CODEC
+
+
+def resolve_codec(codec: str, raws: Sequence[bytes], level: int = 6) -> str:
+    """Map the parameter-level codec id to the concrete one used for this
+    payload.  Identity for everything but ``"auto"``."""
+    if codec == AUTO_CODEC:
+        return choose_codec(raws, level)
+    get_codec(codec)
+    return codec
+
+
+def choose_block_codecs(raws: Sequence[bytes], level: int = 6) -> List[str]:
+    """Per-*block* codec choice: the ``"auto"`` probe applied to every
+    block; the lzma cap stays a bound on the total payload."""
+    del level
+    total = sum(len(r) for r in raws)
+    allow_lzma = total <= _AUTO_LZMA_MAX_BYTES
+    if len(raws) >= 4 and total >= _MIN_PARALLEL_BYTES:
+        return list(_shared_pool().map(
+            lambda r: _probe_one(r, allow_lzma), raws))
+    return [_probe_one(r, allow_lzma) for r in raws]
+
+# ----------------------------------------------------------- parallel stage
+
+# Below this total payload the pool overhead exceeds the win; stay serial.
+_MIN_PARALLEL_BYTES = 1 << 20
+# Batch consecutive blocks until each task carries at least this much.
+_TARGET_TASK_BYTES = 2 << 20
+
+_pool_lock = threading.Lock()
+_pool: Optional[ThreadPoolExecutor] = None
+
+
+def _shared_pool() -> ThreadPoolExecutor:
+    """Process-wide entropy pool (created at first use; sized to the host
+    CPUs)."""
+    global _pool
+    with _pool_lock:
+        if _pool is None:
+            workers = min(32, os.cpu_count() or 1)
+            _pool = ThreadPoolExecutor(max_workers=workers,
+                                       thread_name_prefix="entropy")
+        return _pool
+
+
+def _task_plan(sizes: Sequence[int], workers: int) -> List[range]:
+    """Group consecutive block indices into tasks, in order, at least
+    `workers` of them unless the payload is small."""
+    total = sum(sizes)
+    n = len(sizes)
+    n_tasks = max(workers, total // _TARGET_TASK_BYTES)
+    n_tasks = max(1, min(n, n_tasks))
+    step = -(-n // n_tasks)
+    return [range(s, min(s + step, n)) for s in range(0, n, step)]
+
+
+def _serial(raws: Sequence[bytes], parallel: bool) -> bool:
+    return (not parallel or len(raws) < 2
+            or sum(len(r) for r in raws) < _MIN_PARALLEL_BYTES)
+
+
+def compress_blocks(raws: Sequence[bytes], codec: str = DEFAULT_CODEC,
+                    level: int = 6, parallel: bool = True) -> List[bytes]:
+    """Entropy-code every block; the single finalize entry point."""
+    codec = resolve_codec(codec, raws, level)
+    c = get_codec(codec)
+    if _serial(raws, parallel):
+        return [c.compress(r, level) for r in raws]
+    ex = _shared_pool()
+    plan = _task_plan([len(r) for r in raws], ex._max_workers)
+    out: List[bytes] = []
+    for part in ex.map(lambda rng: [c.compress(raws[i], level)
+                                    for i in rng], plan):
+        out.extend(part)
+    return out
+
+
+def compress_blocks_per_codec(raws: Sequence[bytes], codecs: Sequence[str],
+                              level: int = 6,
+                              parallel: bool = True) -> List[bytes]:
+    """Entropy-code every block with its *own* codec id (one pool
+    dispatch over all blocks)."""
+    if len(raws) != len(codecs):
+        raise ValueError("one codec id per block")
+    pairs = [(r, get_codec(c)) for r, c in zip(raws, codecs)]
+    if _serial(raws, parallel):
+        return [c.compress(r, level) for r, c in pairs]
+    return list(_shared_pool().map(lambda rc: rc[1].compress(rc[0], level),
+                                   pairs))
+
+
+def _decompress_one(c: Codec, codec: str, blob: bytes) -> bytes:
+    """Decode one blob; codec failures become :class:`IntegrityError`."""
+    try:
+        return c.decompress(blob)
+    except Exception as e:
+        raise IntegrityError(
+            f"entropy decode failed: codec {codec!r} rejected a "
+            f"{len(blob)}-byte blob ({e!r}) -- block is corrupt or "
+            "truncated") from e
+
+
+def decompress_block(blob: bytes, codec: str = DEFAULT_CODEC) -> bytes:
+    return _decompress_one(get_codec(codec), codec, blob)
+
+
+def decompress_blocks(blobs: Sequence[bytes], codec: str = DEFAULT_CODEC,
+                      parallel: bool = True) -> List[bytes]:
+    """Inverse of compress_blocks (parallel when the payload warrants it)."""
+    c = get_codec(codec)
+    if _serial(blobs, parallel):
+        return [_decompress_one(c, codec, b) for b in blobs]
+    return list(_shared_pool().map(lambda b: _decompress_one(c, codec, b),
+                                   blobs))
+
+
+__all__ = ["Codec", "ZlibCodec", "RawCodec", "LzmaCodec", "Bz2Codec",
+           "DEFAULT_CODEC", "AUTO_CODEC", "register_codec", "get_codec",
+           "validate_codec_id", "choose_codec",
+           "choose_block_codecs", "resolve_codec", "compress_blocks",
+           "compress_blocks_per_codec", "decompress_block",
+           "decompress_blocks"]

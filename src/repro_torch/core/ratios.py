@@ -1,0 +1,69 @@
+"""Phase 1: element-wise change-ratio calculation (paper Sec. III-A / IV-A).
+
+    dD[i,j] = (D[i,j] - D[i-1,j]) / D[i-1,j]                     (Eq. 1)
+
+A ratio is *valid* (candidate for binning) iff the previous value is nonzero
+and the ratio is finite.  All ratio math is float32, for f64 data too,
+exactly as in the reference's ``core/ratios.py``.
+
+On a CUDA tensor PyTorch computes ``tensor / python_scalar`` as a multiply
+by the reciprocal, which is not correctly rounded; every division here is
+therefore tensor by tensor, with scalars held as 0-d tensors on the data's
+device.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def change_ratios(prev: torch.Tensor, curr: torch.Tensor):
+    """Return (ratios f32, valid bool), flattened to 1-D."""
+    prev = prev.reshape(-1).to(torch.float32)
+    curr = curr.reshape(-1).to(torch.float32)
+    denom_ok = prev != 0.0
+    safe_prev = torch.where(denom_ok, prev, torch.ones_like(prev))
+    ratios = (curr - safe_prev) / safe_prev
+    valid = denom_ok & torch.isfinite(ratios) & torch.isfinite(curr)
+    ratios = torch.where(valid, ratios, torch.zeros_like(ratios))
+    return ratios, valid
+
+
+def ratio_range(ratios: torch.Tensor, valid: torch.Tensor):
+    """(min, max) over valid ratios as host float32; (0, 0) when none are
+    valid.  One device-to-host copy."""
+    lo = torch.where(valid, ratios, float("inf")).amin()
+    hi = torch.where(valid, ratios, float("-inf")).amax()
+    lo, hi, any_valid = torch.stack([lo, hi, valid.any().float()]).tolist()
+    if not any_valid:
+        return np.float32(0.0), np.float32(0.0)
+    return np.float32(lo), np.float32(hi)
+
+
+def histogram_domain(lo: np.float32, hi: np.float32, error_bound: float,
+                     max_bins: int):
+    """(domain_lo, width) of the candidate-bin histogram, float32 as in the
+    reference: bins of width 2E anchored at the global minimum when the
+    range fits in max_bins bins, else centred on zero."""
+    width = np.float32(2.0) * np.float32(error_bound)
+    coverage = width * np.float32(max_bins)
+    fits = np.float32(hi) - np.float32(lo) <= coverage
+    domain_lo = np.float32(lo) if fits else np.float32(-0.5) * coverage
+    return np.float32(domain_lo), np.float32(width)
+
+
+def candidate_bin_ids(ratios: torch.Tensor, valid: torch.Tensor, domain_lo,
+                      width, max_bins: int):
+    """Map each ratio to its candidate histogram bin; -1 if not binnable."""
+    dev = ratios.device
+    lo_t = torch.tensor(float(domain_lo), dtype=torch.float32, device=dev)
+    w_t = torch.tensor(float(width), dtype=torch.float32, device=dev)
+    m_t = torch.tensor(float(max_bins), dtype=torch.float32, device=dev)
+    raw = torch.floor((ratios - lo_t) / w_t)
+    ok = valid & (raw >= 0) & (raw < m_t)
+    ids = torch.where(ok, raw, torch.full_like(raw, -1.0))
+    return ids.to(torch.int32), ok
+
+
+__all__ = ["change_ratios", "ratio_range", "histogram_domain",
+           "candidate_bin_ids"]

@@ -1,0 +1,74 @@
+"""Dispatch over the port's kernels: a CPU tensor goes to the plain
+PyTorch version, a CUDA tensor to the hand-written kernel, and any other
+device raises.  There is no other switch and no fallback.
+
+Also the encode stage's exception compaction, which needs no kernel (as
+in the reference's ``kernels/ops.py``: a nonzero plus per-block counts).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import bitpack, change_ratio, dequant, hist
+
+# The four kernels of the main path, for build checks and launch counts.
+KERNELS = (change_ratio.KERNEL, hist.KERNEL, bitpack.KERNEL, dequant.KERNEL)
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def change_ratio_bins(prev, curr, domain_lo, width, *, max_bins):
+    fn = (change_ratio.change_ratio_bins_cuda if _on_cuda(prev)
+          else change_ratio.change_ratio_bins_plain)
+    return fn(prev, curr, domain_lo, width, max_bins=max_bins)
+
+
+def histogram(bin_ids, *, max_bins):
+    fn = hist.histogram_cuda if _on_cuda(bin_ids) else hist.histogram_plain
+    return fn(bin_ids, max_bins=max_bins)
+
+
+def pack_bits(idx, *, b_bits):
+    fn = (bitpack.pack_bits_cuda if _on_cuda(idx)
+          else bitpack.pack_bits_plain)
+    return fn(idx, b_bits=b_bits)
+
+
+def dequantize(idx, prev, centers, *, b_bits):
+    fn = (dequant.dequantize_cuda if _on_cuda(prev)
+          else dequant.dequantize_plain)
+    return fn(idx, prev, centers, b_bits=b_bits)
+
+
+def chain_advance(idx, prev, curr, centers, *, b_bits):
+    """Fused REF_RECONSTRUCTED chain advance:
+    R_i = prev * (1 + centers[idx]);  R_i[idx == marker] = curr."""
+    fn = (dequant.chain_advance_cuda if _on_cuda(prev)
+          else dequant.chain_advance_plain)
+    return fn(idx, prev, curr, centers, b_bits=b_bits)
+
+
+def exception_compact(idx, n, marker, block_elems):
+    """Incompressible compaction for the encode stage: (per-block marker
+    counts (nblocks,) int64, ascending marker positions (k,) int64), both
+    on the host."""
+    mask = idx.reshape(-1)[:n] == marker
+    nblocks = -(-n // block_elems)
+    padded = torch.zeros(nblocks * block_elems, dtype=torch.int32,
+                         device=mask.device)
+    padded[:n] = mask
+    counts = padded.view(nblocks, block_elems).sum(dim=1)
+    pos = torch.nonzero(mask).reshape(-1)
+    return (counts.cpu().numpy().astype(np.int64),
+            pos.cpu().numpy().astype(np.int64))
+
+
+__all__ = ["KERNELS", "change_ratio_bins", "histogram", "pack_bits",
+           "dequantize", "chain_advance", "exception_compact"]

@@ -1,0 +1,177 @@
+"""The port's single-device top-k slice against the JAX package, end to end.
+
+``repro_torch.compress_series`` (device "cpu": the kernels' plain
+versions) must give the JAX package's steps field for field and blob for
+blob, for every chain residency, overlap mode and host codec; both
+decompressors must agree bit for bit; steps cross between the packages
+through ``repro_torch.interop``.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch  # noqa: E402
+from repro.core import blocks as jblocks  # noqa: E402
+from repro.core import compress as jcompress  # noqa: E402
+from repro.core.container import NCKWriter  # noqa: E402
+from repro.core.types import CompressedStep as JStep  # noqa: E402
+from repro.core.types import NumarckParams as JParams  # noqa: E402
+from repro.data.temporal import generate_series as jseries  # noqa: E402
+from repro_torch import interop  # noqa: E402
+from repro_torch.core import blocks as tblocks  # noqa: E402
+from repro_torch.core import compress as tcompress  # noqa: E402
+from repro_torch.data.temporal import generate_series as tseries  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+SERIES = {"stir_f32": ("stir", 4, 4), "sedov_f64": ("sedov", 3, 2)}
+CODECS = ("zlib", "raw", "bz2", "lzma", "auto")
+
+
+def _assert_steps_equal(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        fg, fw = interop.step_to_fields(g), interop.step_to_fields(w)
+        assert fg.keys() == fw.keys()
+        for k, vg in fg.items():
+            vw = fw[k]
+            if isinstance(vw, np.ndarray):
+                assert isinstance(vg, np.ndarray), k
+                assert vg.dtype == vw.dtype and vg.shape == vw.shape, k
+                np.testing.assert_array_equal(vg, vw, err_msg=k)
+            else:
+                assert vg == vw, k
+
+
+@pytest.fixture(scope="module", params=sorted(SERIES))
+def series(request):
+    name, steps, scale = SERIES[request.param]
+    arrays = list(tseries(name, steps, seed=0, scale=scale))
+    for a, b in zip(arrays, jseries(name, steps, seed=0, scale=scale)):
+        np.testing.assert_array_equal(a, b)
+    return arrays
+
+
+@pytest.mark.parametrize("codec", CODECS)
+def test_compress_series_matches_jax(series, codec):
+    want = jcompress.compress_series(series, JParams(codec=codec))
+    params = repro_torch.NumarckParams(codec=codec)
+    assert params.to_json() == JParams(codec=codec).to_json()
+    for chain in ("host", "device"):
+        for overlap in (False, True):
+            got = repro_torch.compress_series(series, params, overlap=overlap,
+                                              chain=chain, device="cpu")
+            _assert_steps_equal(got, want)
+    # Decompressors agree bit for bit, and each decodes the other's steps.
+    recon = jcompress.decompress_series(want)
+    for arrs in (repro_torch.decompress_series(got),
+                 repro_torch.decompress_series(
+                     [interop.step_from_fields(interop.step_to_fields(s))
+                      for s in want])):
+        for a, b in zip(arrs, recon):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("chain", ["host", "device"])
+def test_reference_state_is_the_decompressed_step(series, chain):
+    """The compressor's chain state after each step equals what the
+    decompressor rebuilds from the finalized blobs."""
+    c = repro_torch.TemporalCompressor(chain=chain, device="cpu")
+    d = repro_torch.TemporalDecompressor()
+    try:
+        for a in series:
+            recon = d.add(c.add(a))
+            state = c.reference_state()
+            assert state.dtype == recon.dtype
+            np.testing.assert_array_equal(state, recon)
+    finally:
+        c.close()
+
+
+def test_deflate_blocks_matches_jax():
+    rng = np.random.default_rng(0)
+    idx = rng.integers(0, 1 << 6, 40_000).astype(np.int32)
+    want = jblocks.deflate_blocks(idx, 6, 4096, codec="bz2")
+    got = tblocks.deflate_blocks(idx, 6, 4096, codec="bz2")
+    assert got[0] == want[0]
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(g, w)
+    for bi, (s, e) in enumerate(tblocks.block_slices(idx.size, 4096)):
+        np.testing.assert_array_equal(
+            tblocks.inflate_block(got[0][bi], e - s, 6, codec="bz2"),
+            idx[s:e])
+
+
+def test_nck_writer_bytes_from_port_steps(series, tmp_path):
+    params = repro_torch.NumarckParams()
+    got = repro_torch.compress_series(series, params, device="cpu")
+    want = jcompress.compress_series(series, JParams())
+    paths = []
+    for tag, steps in (("jax", want),
+                       ("port", [JStep(**interop.step_to_fields(s))
+                                 for s in got])):
+        w = NCKWriter()
+        for i, s in enumerate(steps):
+            w.add_step(f"v/{i}", s)
+        paths.append(tmp_path / f"{tag}.nck")
+        w.write(str(paths[-1]))
+    assert paths[0].read_bytes() == paths[1].read_bytes()
+
+
+def test_params_round_trip_through_dict():
+    jp = JParams(codec="bz2", b_bits=9, max_bins=4096, error_bound=2e-3)
+    tp = interop.params_from_dict(jp.__dict__)
+    assert tp.to_json() == jp.to_json()
+
+
+def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    arrays = list(tseries("stir", 2, seed=0, scale=16))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.compress_series(arrays)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcompress.encode_device(arrays[0], arrays[1],
+                                repro_torch.NumarckParams())
+
+
+@pytest.mark.parametrize("strategy", ["equal", "log", "kmeans"])
+def test_unported_strategies_raise(strategy):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        repro_torch.TemporalCompressor(
+            repro_torch.NumarckParams(strategy=strategy), device="cpu")
+
+
+def test_import_leaves_jax_and_repro_out():
+    code = ("import sys, repro_torch, repro_torch.core.compress, "
+            "repro_torch.kernels.ops, repro_torch.interop\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_no_jax_or_repro_import_in_the_port():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+                    f"{f}: imports {name}"
