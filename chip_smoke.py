@@ -18,7 +18,11 @@ Phases, each fatal on failure (exit code 1, no result line):
   3. kernels  each kernel against its plain version on the card, exactly,
               at n = 42*360*240 (the CMIP step) and n = 2^26, with timings
               (median of 20 launches, CUDA events, after warm-up) beside
-              the bound the card's memory and arithmetic rates set.
+              the bound the card's memory and arithmetic rates set.  The
+              histogram runs on the id sets of `hist_id_sets` (the CMIP
+              step's ids with the main path's id bound, the 2^26 pair, a
+              wide-domain 2^26 pair, one-bin and uniform ids) and logs its
+              launch shape for each.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last {"ok": true, "device": {...}}.  It needs the repo's
@@ -90,6 +94,62 @@ def max_abs_err(torch, a, b) -> float:
     if a.dtype == torch.uint32:
         a, b = a.to(torch.int64), b.to(torch.int64)
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def big_pair(np, n: int, seed: int = 0):
+    """A synthetic temporal pair of n f32 values: ratios ~ N(0, 1e-3) and
+    1 % jumps ~ N(0, 1), about 4,000 live bins at E = 1e-3."""
+    rng = np.random.default_rng(seed)
+    prev = rng.normal(2.0, 0.7, n).astype(np.float32)
+    curr = prev * (1 + 1e-3 * rng.standard_normal(n)).astype(np.float32)
+    jumps = rng.random(n) < 0.01
+    curr[jumps] *= (1 + rng.standard_normal(jumps.sum())).astype(np.float32)
+    return prev, curr
+
+
+def wide_pair(np, prev, curr, seed: int = 1):
+    """The same pair with 0.1 % of prev scaled by 1e-5: those ratios reach
+    ~1e5, the range exceeds 2E * max_bins, and the domain is centred on
+    zero (id bound = max_bins)."""
+    rng = np.random.default_rng(seed)
+    prev = prev.copy()
+    hit = rng.random(prev.size) < 1e-3
+    prev[hit] *= np.float32(1e-5)
+    return prev, curr
+
+
+def hist_id_sets(torch, np, dev, pairs: dict, error_bound: float,
+                 max_bins: int) -> dict:
+    """label -> (bin ids on the card, id bound) for the histogram phase.
+
+    For each (prev, curr) pair, the ids come from the change-ratio kernel
+    and the bound from core.ratios.histogram_domain, as on the main path.  Two
+    synthetic sets of the size of the last pair follow: every id in one
+    bin (bound: that bin + 1) and uniform ids over all max_bins bins (no
+    bound)."""
+    from repro_torch.core import ratios
+    from repro_torch.kernels import change_ratio
+
+    sets = {}
+    for label, (p_np, c_np) in pairs.items():
+        p = torch.from_numpy(p_np).to(dev)
+        c = torch.from_numpy(c_np).to(dev)
+        r, valid = ratios.change_ratios(p, c)
+        lo, hi = ratios.ratio_range(r, valid)
+        del r, valid
+        d_lo, width, bound = ratios.histogram_domain(lo, hi, error_bound,
+                                                     max_bins)
+        _, ids = change_ratio.change_ratio_bins_cuda(p, c, d_lo, width,
+                                                     max_bins=max_bins)
+        sets[label] = (ids, bound)
+        del p, c
+    n = ids.numel()
+    gen = torch.Generator(device=dev).manual_seed(n)
+    sets["one-bin"] = (torch.full((n,), 2047, dtype=torch.int32, device=dev),
+                       2048)
+    sets["uniform"] = (torch.randint(0, max_bins, (n,), generator=gen,
+                                     device=dev, dtype=torch.int32), None)
+    return sets
 
 
 def run(torch, np) -> dict:
@@ -188,14 +248,7 @@ def run(torch, np) -> dict:
         + " (encode = range pass, kernels 1-3, sort, auto-B, copies to host)")
 
     # -- 3. each kernel against its plain version, timed -------------------
-    rng = np.random.default_rng(0)
-    n_big = N_BIG
-    prev_big = rng.normal(2.0, 0.7, n_big).astype(np.float32)
-    curr_big = prev_big * (1 + 1e-3 * rng.standard_normal(n_big)
-                           ).astype(np.float32)
-    jumps = rng.random(n_big) < 0.01
-    curr_big[jumps] *= (1 + rng.standard_normal(jumps.sum())
-                        ).astype(np.float32)
+    prev_big, curr_big = big_pair(np, N_BIG)
     pairs = {"cmip": (data["cmip"][0].reshape(-1), data["cmip"][1].reshape(-1)),
              "2^26": (prev_big, curr_big)}
     n_main = data["cmip"][0].size
@@ -235,7 +288,8 @@ def run(torch, np) -> dict:
             r, valid = ratios.change_ratios(p, c)
             lo, hi = ratios.ratio_range(r, valid)
             del r, valid
-            d_lo, width = ratios.histogram_domain(lo, hi, E, params.max_bins)
+            d_lo, width, _ = ratios.histogram_domain(lo, hi, E,
+                                                     params.max_bins)
             args = (p, c, d_lo, width)
             kw = dict(max_bins=params.max_bins)
             got = change_ratio.change_ratio_bins_cuda(*args, **kw)
@@ -253,28 +307,7 @@ def run(torch, np) -> dict:
                         *args, **kw))
                 record("change_ratio", ms, plain_ms, n * (2 * esz + 8), 5 * n,
                        FP32_OPS_PER_S)
-            if dtype == torch.float64:
-                continue
-            ids = got[1]
             del got, p, c
-            m = params.max_bins
-            check("hist", hist.histogram_cuda(ids, max_bins=m),
-                  hist.histogram_plain(ids, max_bins=m))
-            ms = time_ms(torch, lambda: hist.histogram_cuda(ids, max_bins=m))
-            valid_ids = ids[ids >= 0]
-            lib_ms = time_ms(torch, lambda: torch.bincount(valid_ids,
-                                                           minlength=m))
-            log(f"hist {label} n={n} max_bins={m}: {ms:.4f} ms, "
-                f"torch.bincount over the {valid_ids.numel()} valid ids "
-                f"{lib_ms:.4f} ms, bound "
-                f"{bound_ms(4 * n + 4 * m, n, FP32_OPS_PER_S)[0]:.4f} ms, "
-                "exact")
-            if main:
-                plain_ms = time_ms(torch, lambda: hist.histogram_plain(
-                    ids, max_bins=m))
-                record("hist", ms, plain_ms, 4 * n + 4 * m, n,
-                       FP32_OPS_PER_S, lib_ms)
-            del ids, valid_ids
 
         gen = torch.Generator(device=dev).manual_seed(n)
         line = []
@@ -338,6 +371,36 @@ def run(torch, np) -> dict:
                 del idx, prev, curr, cen, args
             log(f"dequant (chain advance) {label} n={n} {dtype} ms: "
                 + " ".join(line) + ", dequantize and chain advance exact")
+
+    # The histogram on each id set: exact against its plain version, with
+    # the launch shape the id bound gives.
+    m = params.max_bins
+    pairs["wide 2^26"] = wide_pair(np, prev_big, curr_big)
+    sets = hist_id_sets(torch, np, dev, pairs, E, m)
+    del prev_big, curr_big, pairs
+    for label, (ids, bound) in sets.items():
+        n = ids.numel()
+        plan = hist.launch_plan(ids, max_bins=m, id_bound=bound)
+        check("hist", hist.histogram_cuda(ids, max_bins=m, id_bound=bound),
+              hist.histogram_plain(ids, max_bins=m))
+        ms = time_ms(torch, lambda: hist.histogram_cuda(ids, max_bins=m,
+                                                        id_bound=bound))
+        valid_ids = ids[ids >= 0]
+        lib_ms = time_ms(torch, lambda: torch.bincount(valid_ids,
+                                                       minlength=m))
+        b = bound_ms(4 * n + 4 * m, n, FP32_OPS_PER_S)[0]
+        log(f"hist {label} n={n} max_bins={m} id_bound={bound}: {ms:.4f} ms "
+            f"({b / ms:.0%} of the bound {b:.4f} ms), torch.bincount over "
+            f"the {valid_ids.numel()} valid ids {lib_ms:.4f} ms, exact; "
+            f"launch {json.dumps(plan)}")
+        if label == "cmip":
+            plain_ms = time_ms(torch, lambda: hist.histogram_plain(
+                ids, max_bins=m))
+            record("hist", ms, plain_ms, 4 * n + 4 * m, n, FP32_OPS_PER_S,
+                   lib_ms)
+            table["hist"]["id_bound"] = bound
+            table["hist"]["launch"] = plan
+        del ids, valid_ids
     return table
 
 

@@ -58,16 +58,18 @@ def _analyze(prev: torch.Tensor, curr: torch.Tensor, params: NumarckParams,
 
     The range pass is plain PyTorch (the reference's ``ratio_range``);
     the change-ratio kernel then recomputes the ratios with the domain in
-    hand, as the reference's sharded analyze does.
+    hand, as the reference's sharded analyze does.  The range also bounds
+    the ids, which sizes the histogram kernel's table.
     """
     r, valid = ratios.change_ratios(prev, curr)
     lo, hi = ratios.ratio_range(r, valid)
     del r, valid
-    domain_lo, width = ratios.histogram_domain(lo, hi, params.error_bound,
-                                               params.max_bins)
+    domain_lo, width, bound = ratios.histogram_domain(
+        lo, hi, params.error_bound, params.max_bins)
     _, bin_ids = kops.change_ratio_bins(prev, curr, domain_lo, width,
                                         max_bins=params.max_bins)
-    counts = kops.histogram(bin_ids, max_bins=params.max_bins)
+    counts = kops.histogram(bin_ids, max_bins=params.max_bins,
+                            id_bound=bound)
     counts_desc, ids_desc = binning.sort_histogram(counts)
     b_auto, est_sizes = select_b.choose_b(counts_desc, curr.numel(),
                                           elem_bytes, params.b_max)

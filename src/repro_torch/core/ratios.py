@@ -42,14 +42,28 @@ def ratio_range(ratios: torch.Tensor, valid: torch.Tensor):
 
 def histogram_domain(lo: np.float32, hi: np.float32, error_bound: float,
                      max_bins: int):
-    """(domain_lo, width) of the candidate-bin histogram, float32 as in the
-    reference: bins of width 2E anchored at the global minimum when the
-    range fits in max_bins bins, else centred on zero."""
+    """(domain_lo, width, id_bound) of the candidate-bin histogram.
+
+    domain_lo and width are float32 as in the reference: bins of width 2E
+    anchored at the global minimum when the range fits in max_bins bins,
+    else centred on zero.  id_bound is an exclusive upper bound on the
+    step's candidate-bin ids, which sizes the histogram kernel's table:
+    ``floor((hi - domain_lo) / width) + 1``, clamped to [1, max_bins], when
+    the range fits, else max_bins.  numpy float32 scalars round each step
+    as the change-ratio kernel's ``__fsub_rn`` and ``__fdiv_rn`` do, and
+    the id is monotone in the ratio, so the largest id of the step is the
+    id of ``hi``: the bound is exact, for f64 data too, since the range
+    pass and the kernel both round the data to float32 once before any
+    arithmetic.
+    """
+    lo, hi = np.float32(lo), np.float32(hi)
     width = np.float32(2.0) * np.float32(error_bound)
     coverage = width * np.float32(max_bins)
-    fits = np.float32(hi) - np.float32(lo) <= coverage
-    domain_lo = np.float32(lo) if fits else np.float32(-0.5) * coverage
-    return np.float32(domain_lo), np.float32(width)
+    if not hi - lo <= coverage:
+        return np.float32(np.float32(-0.5) * coverage), width, int(max_bins)
+    top = np.floor((hi - lo) / width)
+    bound = int(min(max(top + np.float32(1), np.float32(1)), max_bins))
+    return lo, width, bound
 
 
 def candidate_bin_ids(ratios: torch.Tensor, valid: torch.Tensor, domain_lo,

@@ -30,9 +30,9 @@ def change_ratio_bins(prev, curr, domain_lo, width, *, max_bins):
     return fn(prev, curr, domain_lo, width, max_bins=max_bins)
 
 
-def histogram(bin_ids, *, max_bins):
+def histogram(bin_ids, *, max_bins, id_bound=None):
     fn = hist.histogram_cuda if _on_cuda(bin_ids) else hist.histogram_plain
-    return fn(bin_ids, max_bins=max_bins)
+    return fn(bin_ids, max_bins=max_bins, id_bound=id_bound)
 
 
 def pack_bits(idx, *, b_bits):

@@ -8,6 +8,8 @@ imports no JAX (the machine with the card has none), so it runs there as
 
 The input makers here are shared with tests/test_torch_kernels.py.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -15,6 +17,7 @@ torch = pytest.importorskip("torch")
 
 import repro_torch  # noqa: E402
 from repro_torch import interop  # noqa: E402
+from repro_torch.core import ratios  # noqa: E402
 from repro_torch.data.temporal import generate_series  # noqa: E402
 from repro_torch.kernels import bitpack, change_ratio, dequant, hist, ops  # noqa: E402
 
@@ -82,12 +85,68 @@ def test_cuda_change_ratio_matches_plain(cuda, dtype):
         assert torch.equal(g, w)
 
 
+@functools.lru_cache(maxsize=None)
+def _cmip_ids(max_bins):
+    """Candidate-bin ids of a CMIP-like step (the main path's domain for
+    this max_bins, plain versions on the CPU)."""
+    prev, curr = (torch.from_numpy(a.reshape(-1)) for a in
+                  generate_series("cmip", 2, seed=0, scale=2))
+    r, valid = ratios.change_ratios(prev, curr)
+    lo, hi = ratios.ratio_range(r, valid)
+    d_lo, width, _ = ratios.histogram_domain(lo, hi, 1e-3, max_bins)
+    _, ids = change_ratio.change_ratio_bins_plain(prev, curr, d_lo, width,
+                                                  max_bins=max_bins)
+    return ids.numpy()
+
+
+def _hist_ids(kind, n, max_bins):
+    rng = np.random.default_rng(n + max_bins)
+    if kind == "one_bin":
+        return np.full(n, max_bins // 2, np.int32)
+    if kind == "all_invalid":
+        return np.full(n, -1, np.int32)
+    if kind == "uniform":
+        return rng.integers(-1, max_bins, n).astype(np.int32)
+    if kind == "hot":
+        return _ids(n, max_bins, seed=1)
+    return np.resize(_cmip_ids(max_bins), n)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("max_bins", [2, 1000, 65536, 100_000])
-def test_cuda_histogram_matches_plain(cuda, max_bins):
-    ids = torch.from_numpy(_ids(1 << 20, max_bins, seed=1)).to(cuda)
-    assert torch.equal(hist.histogram_cuda(ids, max_bins=max_bins),
-                       hist.histogram_plain(ids, max_bins=max_bins))
+@pytest.mark.parametrize("bound", ["exact", "too_small", "none"])
+@pytest.mark.parametrize("max_bins", [2, 1000, 65536, 100_000, 300_000,
+                                      1_000_003])
+@pytest.mark.parametrize("kind", ["one_bin", "all_invalid", "uniform",
+                                  "hot", "cmip"])
+def test_cuda_histogram_matches_plain(cuda, kind, max_bins, bound):
+    """Exact for any hint: the id bound of the ids (max + 1), a bound of 1
+    that leaves every id above the table, and none (the whole domain);
+    at lengths around the 16-byte loads, aligned and from ids[1:]."""
+    full = torch.from_numpy(_hist_ids(kind, (1 << 20) + 1, max_bins)).to(cuda)
+    for n in (1, 3, 4097, 1 << 20):
+        for start in (0, 1):
+            ids = full[start:start + n]
+            id_bound = {"exact": int(ids.max()) + 1, "too_small": 1,
+                        "none": None}[bound]
+            got = hist.histogram_cuda(ids, max_bins=max_bins,
+                                      id_bound=id_bound)
+            want = hist.histogram_plain(ids, max_bins=max_bins)
+            assert torch.equal(got, want), (n, start, id_bound)
+
+
+@pytest.mark.cuda
+def test_cuda_histogram_plan_takes_each_route(cuda):
+    """The main path's table (a few thousand bins): one block, several per
+    SM; 65,536 bins: a cluster; beyond what eight blocks hold: slices."""
+    ids = torch.zeros(1 << 20, dtype=torch.int32, device=cuda)
+    small = hist.launch_plan(ids, max_bins=65536, id_bound=3957)
+    assert small["cluster"] == 1 and small["blocks_per_sm"] > 1
+    assert small["table_bins"] == 3957 and small["slices"] == 1
+    wide = hist.launch_plan(ids, max_bins=65536)
+    assert wide["cluster"] > 1 and wide["slices"] == 1
+    assert wide["grid_x"] % wide["cluster"] == 0
+    huge = hist.launch_plan(ids, max_bins=1_000_003)
+    assert huge["cluster"] == 8 and huge["slices"] > 1
 
 
 @pytest.mark.cuda
