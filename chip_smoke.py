@@ -5,24 +5,41 @@
 
 Phases, each fatal on failure (exit code 1, no result line):
 
-  1. build    nvcc builds the four kernels from src/repro_torch/csrc.
+  1. build    nvcc builds every kernel source in src/repro_torch/csrc.
   2. main     compress_series on the card: CMIP (f32, 42x360x240, six
               steps) and Sedov (f64, 165x32x32, four steps) at the
               default NumarckParams(error_bound=1e-3), chain "device".
               Every kernel's launch count is set to 0 just before each
-              series and read just after; each kernel must have launched
-              once per delta step of that series.  The steps must equal
-              the same call with device="cpu" (the plain versions) byte for
-              byte, and decompress to within E at every step.
-              Then one warm CMIP step, stage by stage (host clock).
-  3. kernels  each kernel against its plain version on the card, exactly,
+              run of a path and read just after; each kernel of the path
+              must have launched once per delta step, and no other.  The
+              steps must equal the same call with device="cpu" (the plain
+              versions) byte for byte, and decompress to within E.
+  3. rans     the same with codec="rans" (the rANS encode kernel, v1
+              blobs) and with symbol_rans=True (v2 blobs, no bit-pack):
+              CMIP, and Sedov with DEVICE_MIN_BYTES = 0 so that the f64
+              route runs through the kernels too, Sedov's read included;
+              a step's v1 blobs must equal the host coder's
+              (rans.compress) of its packed bytes.
+  4. archive  the zlib, v1 and v2 CMIP series through TemporalArchive.write
+              (NCK4; NCK3 for v2 without checksums) and NCKReader, then
+              decompress_series on the card: the rANS decode kernel, the
+              unpack (v1) and the dequantize kernel once per delta step,
+              bit-identical to device="cpu", within E; read_range windows
+              across block edges and around exceptions equal the full
+              decode; a flipped byte in a block raises CorruptBlockError.
+  5. warm     one warm CMIP step, stage by stage (host clock), with zlib
+              and with rans, and one warm read step of each.
+  6. kernels  each kernel against its plain version on the card, exactly,
               at n = 42*360*240 (the CMIP step) and n = 2^26, with timings
               (median of 20 launches, CUDA events, after warm-up) beside
               the bound the card's memory and arithmetic rates set.  The
               histogram runs on the id sets of `hist_id_sets` (the CMIP
               step's ids with the main path's id bound, the 2^26 pair, a
               wide-domain 2^26 pair, one-bin and uniform ids) and logs its
-              launch shape for each.
+              launch shape for each.  The rANS encode, decode and unpack
+              kernels run on the CMIP step's blocks and on a 2^26-element
+              step's, v1 and v2, with the format's parallelism beside
+              their bound.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last {"ok": true, "device": {...}}.  It needs the repo's
@@ -31,9 +48,11 @@ src/ beside it and a CUDA device, and exits non-zero without either.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -44,10 +63,20 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12             # H100 SXM, float32 outside tensor cores
 FP64_OPS_PER_S = 34e12             # H100 SXM, float64 outside tensor cores
+# The rANS kernels do 32-bit integer work; the data sheet gives no int32
+# rate, so their operation bound uses the float32 rate (it never binds).
+INT_OPS_PER_S = FP32_OPS_PER_S
+SM_THREAD_SLOTS = 132 * 2048       # H100 SXM: SMs x resident threads
 ITERS = 20
+PLAIN_ITERS = 5                    # plain rANS lane loops are slow
 E = 1e-3
 N_BIG = 1 << 26                    # one card's share of a large variable
 MAIN_RUNS = {"cmip": 6, "sedov": 4}  # series -> steps on the main path
+# rANS paths: label -> (series, codec params)
+RANS_RUNS = {"cmip v1": ("cmip", dict(codec="rans")),
+             "cmip v2": ("cmip", dict(codec="rans", symbol_rans=True)),
+             "sedov v1": ("sedov", dict(codec="rans")),
+             "sedov v2": ("sedov", dict(codec="rans", symbol_rans=True))}
 SCALE = 1                          # generate_series scale (1 = paper size)
 
 
@@ -152,80 +181,95 @@ def hist_id_sets(torch, np, dev, pairs: dict, error_bound: float,
     return sets
 
 
-def run(torch, np) -> dict:
-    from repro_torch import compress_series, decompress_series, interop
+def counted(torch, kernels, fn):
+    """Run ``fn`` with every kernel's launch count set to 0 just before it;
+    return its result and the counts read just after."""
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k.name: k.launches for k in kernels}
+
+
+def check_counts(label, got: dict, want: dict) -> None:
+    wrong = {k: (c, want.get(k, 0)) for k, c in got.items()
+             if c != want.get(k, 0)}
+    if wrong:
+        raise AssertionError(f"{label}: launches (got, expected) {wrong}")
+
+
+def compress_launches(n_steps: int, params) -> dict:
+    """Launches of a compress run: the four compress kernels once per
+    delta step (no bit-pack for v2 blobs), the rANS encode once per delta
+    step when the device entropy stage runs."""
+    d = n_steps - 1
+    rans_on = params.codec == "rans"
+    return dict(change_ratio=d, hist=d, dequant=d,
+                bitpack=0 if rans_on and params.symbol_rans else d,
+                rans_encode=d if rans_on else 0)
+
+
+def read_launches(steps) -> dict:
+    """Launches of decompress_series on the device route: per delta step
+    one rANS decode per (version, lanes) group of v1/v2 blobs, one unpack
+    per v0 or v1 group, one dequantize; per anchor one decode per
+    (length, lanes) group of v1 blobs."""
+    from repro_torch.core import compress
+    from repro_torch.kernels import rans
+    n = dict(rans_decode=0, rans_unpack=0, dequant=0)
+    for s in steps:
+        if not compress.device_decode_route(s):
+            continue
+        keys = set()
+        for b in s.index_blocks:
+            v = rans.blob_version(b)
+            if v == 1:
+                keys.add((1,) + tuple(rans._parse_v1(b)[:2]))
+            elif v == 2:
+                keys.add((2, rans._parse_v2(b)[2]))
+            elif not s.is_anchor:
+                keys.add((0,))
+        if s.is_anchor:
+            n["rans_decode"] += len(keys)
+            continue
+        n["rans_decode"] += sum(k[0] != 0 for k in keys)
+        n["rans_unpack"] += sum(k[0] != 2 for k in keys)
+        n["dequant"] += 1
+    return n
+
+
+def same_steps(np, interop, label, got, want) -> None:
+    for i, (g, w) in enumerate(zip(got, want)):
+        fg, fw = interop.step_to_fields(g), interop.step_to_fields(w)
+        for key in fg:
+            same = (np.array_equal(fg[key], fw[key])
+                    if isinstance(fw[key], np.ndarray)
+                    else fg[key] == fw[key])
+            if not same:
+                raise AssertionError(f"{label} step {i}: field {key!r} "
+                                     "differs between cuda and cpu")
+
+
+def check_recon(np, label, arrays, recon) -> list:
+    from repro_torch.core.types import mean_error_rate
+    errs = [mean_error_rate(a, r) for a, r in zip(arrays, recon)]
+    if max(errs) > E * 1.01 or not all(
+            np.isfinite(r).all() and r.shape == a.shape
+            for a, r in zip(arrays, recon)):
+        raise AssertionError(f"{label}: mean error rates {errs} > E")
+    return errs
+
+
+def stage_times(torch, params, dev, first, step_in) -> tuple:
+    """One warm delta step of the compressor, stage by stage (host clock,
+    each stage ended by a synchronize); returns the ms per stage and the
+    step."""
     from repro_torch.core import chain as chainmod
-    from repro_torch.core import compress, packing, pipeline, ratios
-    from repro_torch.core.types import NumarckParams, mean_error_rate
-    from repro_torch.data.temporal import generate_series
-    from repro_torch.kernels import _build, bitpack, change_ratio, dequant
-    from repro_torch.kernels import hist, ops
+    from repro_torch.core import compress, pipeline
 
-    dev = torch.device("cuda")
-
-    # -- 1. build ----------------------------------------------------------
-    log(f"build: {_build.build():.1f} s for {len(_build.SOURCES)} sources "
-        f"({' '.join(_build.NVCC_FLAGS)})")
-    for k in ops.KERNELS:
-        _build.library(k.name)
-
-    # -- 2. the main path on the card --------------------------------------
-    params = NumarckParams(error_bound=E)
-    data = {name: list(generate_series(name, steps, seed=0, scale=SCALE))
-            for name, steps in MAIN_RUNS.items()}
-    results, wall, launches = {}, {}, {}
-    for name, arrays in data.items():
-        # Each series is its own run of the path: counts are set to 0 just
-        # before it and read just after.  Every delta step launches each
-        # kernel once; the anchor launches none.
-        torch.cuda.synchronize()
-        for k in ops.KERNELS:
-            k.launches = 0
-        t0 = time.perf_counter()
-        results[name] = compress_series(arrays, params, chain="device",
-                                        device="cuda")
-        wall[name] = time.perf_counter() - t0
-        launches[name] = {k.name: k.launches for k in ops.KERNELS}
-        log(f"main path {name} launches: {json.dumps(launches[name])}")
-        wrong = {kn: c for kn, c in launches[name].items()
-                 if c != len(arrays) - 1}
-        if wrong:
-            raise AssertionError(f"{name}: kernels launched {wrong} times, "
-                                 f"expected {len(arrays) - 1} each")
-    main_b = {}
-    for name, arrays in data.items():
-        steps = results[name]
-        want = compress_series(arrays, params, chain="device", device="cpu")
-        for i, (g, w) in enumerate(zip(steps, want)):
-            fg, fw = interop.step_to_fields(g), interop.step_to_fields(w)
-            for key in fg:
-                same = (np.array_equal(fg[key], fw[key])
-                        if isinstance(fw[key], np.ndarray)
-                        else fg[key] == fw[key])
-                if not same:
-                    raise AssertionError(f"{name} step {i}: field {key!r} "
-                                         "differs between cuda and cpu")
-        recon = decompress_series(steps)
-        errs = [mean_error_rate(a, r) for a, r in zip(arrays, recon)]
-        if max(errs) > E * 1.01 or not all(
-                np.isfinite(r).all() and r.shape == a.shape
-                for a, r in zip(arrays, recon)):
-            raise AssertionError(f"{name}: mean error rates {errs} > E")
-        main_b[name] = [s.b_bits for s in steps[1:]]
-        nbytes = sum(s.nbytes for s in steps)
-        raw = sum(a.nbytes for a in arrays)
-        log(f"main path {name}: {len(steps)} steps of "
-            f"{arrays[0].shape} {arrays[0].dtype}, "
-            f"{wall[name] / len(steps) * 1e3:.1f} ms/step wall "
-            f"(first call, incl. upload and host finalize), B={main_b[name]}, "
-            f"CR={raw / nbytes:.2f}, max mean error {max(errs):.3e}, "
-            "byte-identical to device=cpu")
-
-    # Where the time of one warm CMIP delta step goes: the compressor's
-    # stages one by one, host clock, each ended by a synchronize.
     ref_chain = chainmod.DeviceReferenceChain(dev)
-    ref_chain.seed(data["cmip"][0])
-    step_in = data["cmip"][1]
+    ref_chain.seed(first)
     stages = {}
 
     def stage(name, fn):
@@ -240,28 +284,423 @@ def run(torch, np) -> dict:
     enc = stage("encode", lambda: compress.encode_device(
         ref_chain.peek(), curr_dev, params, need_host_idx=False))
     stage("chain_advance", lambda: ref_chain.advance(enc, step_in))
-    stage("finalize", lambda: pipeline.finalize_step(
+    step = stage("finalize", lambda: pipeline.finalize_step(
         step_in, enc.enc, enc.centers, enc.domain_lo, enc.width, params,
         enc.meta))
-    log("one warm CMIP step, ms: " + ", ".join(
-        f"{k} {v:.2f}" for k, v in stages.items())
-        + " (encode = range pass, kernels 1-3, sort, auto-B, copies to host)")
+    return stages, step
 
-    # -- 3. each kernel against its plain version, timed -------------------
+
+def archive_phase(torch, np, dev, series: dict) -> dict:
+    """Write each (arrays, steps) series with TemporalArchive.write, read
+    it back through NCKReader and decompress it on the card; partial
+    reads and a corrupt block.  Returns each read run's launch counts."""
+    from repro_torch import NCKReader, TemporalArchive, decompress_series
+    from repro_torch.core import compress
+    from repro_torch.faults.errors import CorruptBlockError
+    from repro_torch.kernels import ops
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, (arrays, steps) in series.items():
+            path = os.path.join(tmp, label.replace(" ", "_") + ".nck")
+            TemporalArchive.write(path, "v", steps)
+            with open(path, "rb") as f:
+                if f.read(4) != b"NCK4":
+                    raise AssertionError(f"{label}: not stamped NCK4")
+            if label.endswith("v2"):
+                TemporalArchive.write(path + ".v3", "v", steps,
+                                      checksums=False)
+                with open(path + ".v3", "rb") as f:
+                    if f.read(4) != b"NCK3":
+                        raise AssertionError(f"{label}: v2 blobs without "
+                                             "checksums not stamped NCK3")
+            r = NCKReader(path)
+            read = [r.read_step(n) for n in r.step_names()]
+            recon, got = counted(torch, ops.KERNELS, lambda: decompress_series(
+                read, device=dev))
+            want = read_launches(read)
+            log(f"archive {label}: read path launches {json.dumps(got)}")
+            check_counts(f"archive {label}", got, want)
+            if label != "cmip zlib" and (
+                    got["dequant"] != len(steps) - 1
+                    or got["rans_decode"] < len(steps) - 1):
+                raise AssertionError(f"{label}: the read path did not run "
+                                     "the decode and dequantize kernels "
+                                     "once per delta step")
+            launches[label] = got
+            cpu = decompress_series(read, device="cpu")
+            for i, (a, b) in enumerate(zip(recon, cpu)):
+                if a.dtype != b.dtype or not np.array_equal(a, b):
+                    raise AssertionError(f"{label} step {i}: cuda read "
+                                         "differs from the cpu read")
+            errs = check_recon(np, f"archive {label}", arrays, recon)
+            ar = TemporalArchive(path)
+            n_win = 0
+            for it in (1, len(steps) - 1):
+                st = read[it]
+                n, be = st.n, st.block_elems
+                idx = compress._decode_index_host(st)
+                pos = np.flatnonzero(idx == (1 << st.b_bits) - 1)
+                wins = [(0, 64), (n - 100, n)]
+                if be + 7 <= n:
+                    wins.append((be - 5, be + 7))
+                wins += [(max(p - 3, 0), min(p + 4, n))
+                         for p in pos[[0, -1]]] if pos.size else []
+                for lo, hi in wins:
+                    part = ar.read_range("v", it, lo, hi)
+                    if not np.array_equal(part,
+                                          recon[it].reshape(-1)[lo:hi]):
+                        raise AssertionError(f"{label}: read_range({it}, "
+                                             f"{lo}, {hi}) differs")
+                    n_win += 1
+            raw = bytearray(open(path, "rb").read())
+            var = r.variables["v_it00003_index_table"]
+            raw[r._data_start + var["offset"] + var["nbytes"] // 2] ^= 0x40
+            bad = path + ".bad"
+            open(bad, "wb").write(bytes(raw))
+            for read_bad in (lambda: NCKReader(bad).read_step("v_it00003"),
+                             lambda: TemporalArchive(bad).read_full("v", 3)):
+                try:
+                    read_bad()
+                except CorruptBlockError:
+                    continue
+                raise AssertionError(f"{label}: a flipped byte in a block "
+                                     "did not raise CorruptBlockError")
+            log(f"archive {label}: {os.path.getsize(path)} bytes, "
+                f"{len(steps)} steps read back bit-identical to "
+                f"device=cpu, max mean error {max(errs):.3e}, {n_win} "
+                "read_range windows exact, corrupt block raised")
+    return launches
+
+
+def rans_inputs(torch, np, dev, prev, curr, params):
+    """The rANS kernels' inputs at one step: encode_device's marker-padded
+    indices, the v1 input (packed bytes and per-block tables) and the v2
+    input (indices and one table), the v1 and v2 blobs, B and L."""
+    from repro_torch.core import compress
+    from repro_torch.kernels import bitpack, rans
+
+    enc = compress.encode_device(torch.from_numpy(prev).to(dev),
+                                 torch.from_numpy(curr).to(dev), params,
+                                 need_host_idx=False)
+    b, be, n = enc.enc.b_bits, enc.enc.block_elems, enc.enc.n
+    nb = -(-n // be)
+    marker = (1 << b) - 1
+    idx = torch.full((nb * be,), marker, dtype=torch.int32, device=dev)
+    idx[:n] = enc.idx_dev
+    nbytes = be * b // 8
+    byts = bitpack.pack_bits_cuda(idx, b_bits=b).view(torch.uint8).view(
+        nb, nbytes)
+    freqs, fcs = rans.tables_from_samples(
+        byts[:, ::rans.sample_stride(nbytes)].cpu().numpy())
+    k_eff = min(marker, params.max_bins)
+    counts = np.bincount(idx.cpu().numpy(), minlength=k_eff + 1)[:k_eff]
+    freq2 = rans.symbol_freq(counts, k_eff, nb * be)
+    v1 = rans.compress_blocks_device(idx, b, nb, be)
+    v2 = rans.compress_blocks_device_symbols(idx, b, k_eff, nb, be, counts)
+    return dict(b=b, be=be, nb=nb, nbytes=nbytes, k_eff=k_eff, byts=byts,
+                idx2d=idx.view(nb, be),
+                fc1=torch.from_numpy(fcs.view(np.int32)).to(dev),
+                fc2=torch.from_numpy(rans.pack_fc(freq2).view(np.int32)
+                                     [None, :]).to(dev),
+                v1=v1, v2=v2)
+
+
+def rans_kernel_phase(torch, np, dev, pairs: dict, table: dict) -> None:
+    """The rANS encode, decode and unpack kernels against their plain
+    versions on the card, exactly, at each pair's step (v1 and v2),
+    timed, with the bound and the format's parallelism."""
+    from repro_torch.core.types import NumarckParams
+    from repro_torch.kernels import rans
+
+    params = NumarckParams(error_bound=E, codec="rans")
+    for label, (p_np, c_np) in pairs.items():
+        x = rans_inputs(torch, np, dev, p_np, c_np, params)
+        b, be, nb, nbytes = x["b"], x["be"], x["nb"], x["nbytes"]
+        for ver, blobs in (("v1", x["v1"]), ("v2", x["v2"])):
+            versions = sorted({rans.blob_version(o) for o in blobs})
+            if label == "cmip" and ver == "v1":
+                host = [rans.compress(x["byts"][k].cpu().numpy().tobytes())
+                        for k in range(nb)]
+                if host != blobs:
+                    raise AssertionError("cmip v1 blobs differ from the "
+                                         "host coder's")
+            syms, fc = ((x["byts"], x["fc1"]) if ver == "v1"
+                        else (x["idx2d"], x["fc2"]))
+            n_sym = syms.shape[1]
+            L = rans.lanes_for(n_sym)
+            m = -(-n_sym // L)
+            got = rans.encode_cuda(syms, fc, L=L)
+            rec = dict(blocks=nb, lanes=L, steps=m,
+                       thread_share=nb * L / SM_THREAD_SLOTS,
+                       blob_versions=versions)
+            check_rans(torch, table, "rans_encode", got,
+                       rans.encode_plain(syms, fc, L=L))
+            ms = time_ms(torch, lambda: rans.encode_cuda(syms, fc, L=L))
+            plain_ms = time_ms(torch, lambda: rans.encode_plain(
+                syms, fc, L=L), PLAIN_ITERS, 1)
+            nbytes_io = (syms.numel() * syms.element_size() + fc.numel() * 4
+                         + nb * m * L * 3 + nb * L * 4)
+            put_rans(table, "rans_encode", f"{label} {ver}", rec, ms,
+                     plain_ms, nbytes_io, 12 * nb * m * L)
+            # decode the same blocks (v0 blocks decode through the unpack)
+            coded = [o for o in blobs if rans.blob_version(o) != 0]
+            if not coded:
+                continue
+            parse = rans._parse_v1 if ver == "v1" else rans._parse_v2
+            skip = 2 if ver == "v1" else 3
+            parsed = [dict(zip(("freq", "states", "stream"), parse(o)[skip:]))
+                      for o in coded]
+            dec, sym, st, stream, ne, ne_np = rans._upload_group(parsed, dev)
+            g = len(coded)
+            if ver == "v1":
+                args = (dec, st, stream, ne)
+                kw = dict(m=m, L=L)
+                fn_c, fn_p = rans.decode_bytes_cuda, rans.decode_bytes_plain
+                out_bytes = g * m * L
+            else:
+                args = (dec, sym, st, stream, ne)
+                kw = dict(m=m, L=L, n=be, n_sym=x["k_eff"] + 1, b_bits=b)
+                fn_c, fn_p = rans.decode_syms_cuda, rans.decode_syms_plain
+                out_bytes = 4 * g * be
+            got = fn_c(*args, **kw)
+            check_rans(torch, table, "rans_decode", got, fn_p(*args, **kw))
+            rans._checked(got[1], got[2], ne_np)
+            ms = time_ms(torch, lambda: fn_c(*args, **kw))
+            plain_ms = time_ms(torch, lambda: fn_p(*args, **kw), PLAIN_ITERS,
+                               1)
+            nbytes_io = (g * rans.M * 4 * (2 if sym is not None else 1)
+                         + 8 * g * L + 2 * int(ne_np.sum()) + 8 * g
+                         + out_bytes + 8 * g)
+            put_rans(table, "rans_decode", f"{label} {ver}",
+                     dict(rec, blocks=g), ms, plain_ms, nbytes_io,
+                     15 * g * m * L)
+            if ver == "v1":
+                byts = got[0]
+                out = rans.unpack_cuda(byts, b_bits=b, be=be)
+                check_rans(torch, table, "rans_unpack", out,
+                           rans.unpack_plain(byts, b_bits=b, be=be))
+                if not torch.equal(out, x["idx2d"][[i for i, o in
+                                                    enumerate(blobs)
+                                                    if rans.blob_version(o)]]):
+                    raise AssertionError(f"{label}: decoded v1 indices "
+                                         "differ from the encoded ones")
+                ms = time_ms(torch, lambda: rans.unpack_cuda(
+                    byts, b_bits=b, be=be))
+                plain_ms = time_ms(torch, lambda: rans.unpack_plain(
+                    byts, b_bits=b, be=be), PLAIN_ITERS, 1)
+                put_rans(table, "rans_unpack", f"{label} B={b}",
+                         dict(blocks=g, elements=g * be), ms, plain_ms,
+                         g * nbytes + 4 * g * be, 6 * g * be)
+            elif not torch.equal(got[0], x["idx2d"][[
+                    i for i, o in enumerate(blobs) if rans.blob_version(o)]]):
+                raise AssertionError(f"{label}: decoded v2 indices differ "
+                                     "from the encoded ones")
+        del x
+
+
+def check_rans(torch, table, kname, got, want) -> None:
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
+    table[kname]["max_abs_err"] = max(table[kname]["max_abs_err"], err)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{kname}: kernel differs from its plain "
+                             f"version (max abs err {err})")
+
+
+def put_rans(table, kname, shape, rec, ms, plain_ms, nbytes, ops) -> None:
+    """Log one rANS timing; the first shape (the CMIP step's v1 blocks)
+    fills the row's numbers, every shape goes under ``shapes``."""
+    b, by = bound_ms(nbytes, ops, INT_OPS_PER_S)
+    rec = dict(rec, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by)
+    row = table[kname]
+    row.setdefault("shapes", {})[shape] = rec
+    if "ms" not in row:
+        row.update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                   library_ms=None)
+    log(f"{kname} {shape}: {ms:.4f} ms ({b / ms:.1%} of the bound "
+        f"{b:.4f} ms, {by}), plain {plain_ms:.2f} ms, exact; "
+        f"{json.dumps({k: v for k, v in rec.items() if k not in ('ms', 'plain_ms', 'bound_ms', 'bound_by')})}")
+
+
+def run(torch, np) -> dict:
+    from repro_torch import compress_series, decompress_series, interop
+    from repro_torch.core import compress, packing, ratios
+    from repro_torch.core.types import NumarckParams
+    from repro_torch.data.temporal import generate_series
+    from repro_torch.kernels import _build, bitpack, change_ratio, dequant
+    from repro_torch.kernels import hist, ops, rans
+
+    dev = torch.device("cuda")
+    K = ops.KERNELS
+
+    # -- 1. build ----------------------------------------------------------
+    log(f"build: {_build.build():.1f} s for {len(_build.SOURCES)} sources "
+        f"({' '.join(_build.NVCC_FLAGS)})")
+    for k in K:
+        _build.library(k.lib)
+
+    # -- 2. the main path on the card --------------------------------------
+    params = NumarckParams(error_bound=E)
+    data = {name: list(generate_series(name, steps, seed=0, scale=SCALE))
+            for name, steps in MAIN_RUNS.items()}
+    results, wall, launches = {}, {}, {}
+    for name, arrays in data.items():
+        # Each series is its own run of the path: counts are set to 0 just
+        # before it and read just after.
+        t0 = time.perf_counter()
+        results[name], launches[name] = counted(
+            torch, K, lambda: compress_series(arrays, params, chain="device",
+                                              device="cuda"))
+        wall[name] = time.perf_counter() - t0
+        log(f"main path {name} launches: {json.dumps(launches[name])}")
+        check_counts(name, launches[name],
+                     compress_launches(len(arrays), params))
+    main_b = {}
+    for name, arrays in data.items():
+        steps = results[name]
+        want = compress_series(arrays, params, chain="device", device="cpu")
+        same_steps(np, interop, name, steps, want)
+        recon = decompress_series(steps, device="cuda")
+        errs = check_recon(np, name, arrays, recon)
+        main_b[name] = [s.b_bits for s in steps[1:]]
+        nbytes = sum(s.nbytes for s in steps)
+        raw = sum(a.nbytes for a in arrays)
+        log(f"main path {name}: {len(steps)} steps of "
+            f"{arrays[0].shape} {arrays[0].dtype}, "
+            f"{wall[name] / len(steps) * 1e3:.1f} ms/step wall "
+            f"(first call, incl. upload and host finalize), B={main_b[name]}, "
+            f"CR={raw / nbytes:.2f}, max mean error {max(errs):.3e}, "
+            "byte-identical to device=cpu")
+
+    # -- 3. the rANS paths on the card --------------------------------------
+    rans_steps = {}
+    min_bytes = rans.DEVICE_MIN_BYTES
+    for label, (name, kw) in RANS_RUNS.items():
+        arrays = data[name]
+        p = NumarckParams(error_bound=E, **kw)
+        # Sedov's 0.17 M-element f64 steps are below the device route's
+        # threshold: lower it so that the f64 route runs the kernels.
+        rans.DEVICE_MIN_BYTES = 0 if name == "sedov" else min_bytes
+        try:
+            t0 = time.perf_counter()
+            steps, got = counted(torch, K, lambda: compress_series(
+                arrays, p, chain="device", device="cuda"))
+            wall_s = time.perf_counter() - t0
+            log(f"rans path {label} launches: {json.dumps(got)}")
+            check_counts(f"rans {label}", got, compress_launches(len(arrays),
+                                                                 p))
+            launches[f"rans {label}"] = got
+            same_steps(np, interop, f"rans {label}", steps, compress_series(
+                arrays, p, chain="device", device="cpu"))
+            if name == "sedov":
+                # The f64 read route through the decode and dequantize
+                # kernels (CMIP's reads run in the archive phase).
+                recon, got = counted(torch, K, lambda: decompress_series(
+                    steps, device=dev))
+                check_counts(f"read {label}", got, read_launches(steps))
+                launches[f"read {label}"] = got
+                cpu = decompress_series(steps, device="cpu")
+                if not all(np.array_equal(a, b) for a, b in zip(recon, cpu)):
+                    raise AssertionError(f"read {label}: cuda differs from "
+                                         "cpu")
+                check_recon(np, f"read {label}", arrays, recon)
+                log(f"read {label} launches: {json.dumps(got)}, "
+                    "bit-identical to device=cpu")
+        finally:
+            rans.DEVICE_MIN_BYTES = min_bytes
+        version = 2 if p.symbol_rans else 1
+        versions = [rans.blob_version(b) for s in steps[1:]
+                    for b in s.index_blocks]
+        if version not in versions or set(versions) - {0, version}:
+            raise AssertionError(f"rans {label}: blob versions {versions}")
+        if label == "cmip v1":
+            st = steps[2]
+            host = [rans.compress(rans.decompress(b)) for b in
+                    st.index_blocks]
+            if host != list(st.index_blocks):
+                raise AssertionError("cmip v1: blobs differ from the host "
+                                     "coder of the same packed bytes")
+        rans_steps[label] = steps
+        nbytes = sum(s.nbytes for s in steps)
+        raw = sum(a.nbytes for a in arrays)
+        log(f"rans path {label}: {len(steps)} steps, "
+            f"{wall_s / len(steps) * 1e3:.1f} ms/step wall (first call), "
+            f"B={[s.b_bits for s in steps[1:]]}, CR={raw / nbytes:.2f} "
+            f"(zlib {raw / sum(s.nbytes for s in results[name]):.2f}), blob "
+            f"versions {sorted(set(versions))}, byte-identical to device=cpu")
+
+    # -- 4. archive and read on the card -----------------------------------
+    read_counts = archive_phase(torch, np, dev, {
+        "cmip zlib": (data["cmip"], results["cmip"]),
+        "cmip v1": (data["cmip"], rans_steps["cmip v1"]),
+        "cmip v2": (data["cmip"], rans_steps["cmip v2"])})
+    for label, got in read_counts.items():
+        launches[f"read {label}"] = got
+
+    # -- 5. one warm step, stage by stage ----------------------------------
+    first, step_in = data["cmip"][0], data["cmip"][1]
+    warm = {}
+    for codec in ("zlib", "rans"):
+        p = NumarckParams(error_bound=E, codec=codec)
+        stages, step = stage_times(torch, p, dev, first, step_in)
+        prev_t = torch.from_numpy(first).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if compress.device_decode_route(step):
+            compress.decompress_step_device(step, prev_t, dev)
+        else:
+            compress.decompress_step(step, first, device=dev)
+        torch.cuda.synchronize()
+        stages["read"] = (time.perf_counter() - t0) * 1e3
+        warm[codec] = stages
+        # The whole series again (warm), and the anchor's share of it.
+        t0 = time.perf_counter()
+        steps = compress_series(data["cmip"], p, chain="device", device=dev)
+        t_c = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        decompress_series(steps, device=dev)
+        t_d = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        anchor = compress.make_anchor(first, p)
+        t_a = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        compress.decode_anchor(anchor, dev)
+        t_ad = time.perf_counter() - t0
+        log(f"warm CMIP series, {codec}, ms: compress_series "
+            f"{t_c * 1e3:.1f} ({len(steps)} steps; the anchor alone "
+            f"{t_a * 1e3:.1f}), decompress_series {t_d * 1e3:.1f} (the "
+            f"anchor alone {t_ad * 1e3:.1f})")
+        log(f"one warm CMIP step, {codec}, ms: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in stages.items())
+            + f" (step {step.nbytes} bytes; encode = range pass, kernels "
+            "1-3, sort, auto-B, copies to host"
+            + (", rANS encode kernel" if codec == "rans" else "")
+            + "; read = decode_step, " + (
+                "rANS decode + unpack + dequantize kernels, patch"
+                if codec == "rans" else "host zlib route") + ")")
+
+    # -- 6. each kernel against its plain version, timed -------------------
     prev_big, curr_big = big_pair(np, N_BIG)
     pairs = {"cmip": (data["cmip"][0].reshape(-1), data["cmip"][1].reshape(-1)),
              "2^26": (prev_big, curr_big)}
     n_main = data["cmip"][0].size
     b_main = main_b["cmip"][0]
-    # ``launches`` is the CMIP run's count (the f32 path whose shapes are
-    # timed below); ``launches_by_path`` gives each run's own count.
+    # ``launches`` is the count of the kernel's own main path: the CMIP zlib
+    # run for kernels 1-4, the CMIP v1 rANS run for the encode, the read of
+    # the CMIP v1 archive for the decode and unpack.  ``launches_by_path``
+    # gives every run's count.
+    own = {"rans_encode": "rans cmip v1", "rans_decode": "read cmip v1",
+           "rans_unpack": "read cmip v1"}
     table = {k.name: dict(name=k.name, route=k.route, source=k.source,
                           replaces=k.replaces,
-                          launches=launches["cmip"][k.name],
+                          launches=launches[own.get(k.name, "cmip")][k.name],
                           launches_by_path={p: c[k.name]
                                             for p, c in launches.items()},
                           max_abs_err=0.0)
-             for k in ops.KERNELS}
+             for k in K}
 
     def check(kname, got, want):
         got = got if isinstance(got, tuple) else (got,)
@@ -371,6 +810,9 @@ def run(torch, np) -> dict:
                 del idx, prev, curr, cen, args
             log(f"dequant (chain advance) {label} n={n} {dtype} ms: "
                 + " ".join(line) + ", dequantize and chain advance exact")
+
+    rans_kernel_phase(torch, np, dev, {"cmip": pairs["cmip"],
+                                       "2^26": pairs["2^26"]}, table)
 
     # The histogram on each id set: exact against its plain version, with
     # the launch shape the id bound gives.

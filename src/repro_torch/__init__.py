@@ -11,10 +11,13 @@ from repro_torch.core.compress import (TemporalCompressor,
                                        compress_step, decompress_series,
                                        decompress_step, encode_device,
                                        make_anchor)
+from repro_torch.core.container import NCKReader, NCKWriter, verify_nck
+from repro_torch.core.partial import TemporalArchive, read_step_range
 from repro_torch.core.types import (CompressedStep, NumarckParams,
                                     mean_error_rate)
 
 __all__ = ["NumarckParams", "CompressedStep", "mean_error_rate",
            "compress_step", "decompress_step", "make_anchor",
            "encode_device", "compress_series", "decompress_series",
-           "TemporalCompressor", "TemporalDecompressor"]
+           "TemporalCompressor", "TemporalDecompressor", "NCKWriter",
+           "NCKReader", "TemporalArchive", "read_step_range", "verify_nck"]

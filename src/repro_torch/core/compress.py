@@ -10,14 +10,22 @@ stages, on the compressor's device:
                        compaction, bit-packing of the whole marker-padded
                        table (bit-pack kernel)
 
+  3. device entropy (``codec="rans"``, payloads of at least
+                       ``rans.DEVICE_MIN_BYTES``) -- the rANS encode
+                       kernel codes the packed bytes (v1 blobs) or, with
+                       ``symbol_rans``, the indices themselves (v2)
+
 then the shared host finalize of ``core.pipeline``.  The REF_RECONSTRUCTED
 chain advances through the fused chain-advance kernel when it is
 device-resident.  On ``device="cpu"`` every kernel call takes its plain
 PyTorch version; both give the reference's steps byte for byte.
 
-Decompression takes the host route, as the reference does for the zlib,
-raw, bz2 and lzma codecs.  The equal-width, log-scale and k-means
-strategies raise ``NotImplementedError`` until their slice (ROADMAP.md).
+Decompression of rANS steps runs on the decompressor's device
+(``device_decode_route``): the rANS decode kernel, the dequantize kernel,
+then the exception patch, with the chain state kept there between steps.
+Other codecs take the host route, as in the reference.  The equal-width,
+log-scale and k-means strategies raise ``NotImplementedError`` until
+their slice (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -37,6 +45,8 @@ from repro_torch.core.types import (REF_RECONSTRUCTED, STRATEGY_TOPK,
                                     CompressedStep, NumarckParams)
 from repro_torch.faults.errors import IntegrityError
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import rans
+from repro_torch.kernels.dequant import patch_exceptions
 
 
 def _require_topk(params: NumarckParams) -> None:
@@ -73,9 +83,9 @@ def _analyze(prev: torch.Tensor, curr: torch.Tensor, params: NumarckParams,
     counts_desc, ids_desc = binning.sort_histogram(counts)
     b_auto, est_sizes = select_b.choose_b(counts_desc, curr.numel(),
                                           elem_bytes, params.b_max)
-    return dict(bin_ids=bin_ids, ids_desc=ids_desc, domain_lo=domain_lo,
-                width=width, b_auto=b_auto, est_sizes=est_sizes, lo=lo,
-                hi=hi)
+    return dict(bin_ids=bin_ids, counts_desc=counts_desc, ids_desc=ids_desc,
+                domain_lo=domain_lo, width=width, b_auto=b_auto,
+                est_sizes=est_sizes, lo=lo, hi=hi)
 
 
 def _encode_topk(bin_ids, ids_desc, b_bits: int, k_eff: int, max_bins: int):
@@ -87,18 +97,67 @@ def _encode_topk(bin_ids, ids_desc, b_bits: int, k_eff: int, max_bins: int):
     return torch.where(bin_ids >= 0, ranks, marker).to(torch.int32)
 
 
-def _pack_blocks_device(idx: torch.Tensor, b_bits: int,
+def _pad_blocks(idx: torch.Tensor, b_bits: int,
+                block_elems: int) -> torch.Tensor:
+    """The index table padded with markers to whole blocks."""
+    n = idx.numel()
+    padded = torch.full((-(-n // block_elems) * block_elems,),
+                        (1 << b_bits) - 1, dtype=torch.int32,
+                        device=idx.device)
+    padded[:n] = idx
+    return padded
+
+
+def _pack_blocks_device(padded: torch.Tensor, b_bits: int,
                         block_elems: int) -> List[bytes]:
     """Pack the whole marker-padded table in one kernel launch, fetch the
     words once and slice them per block on the host."""
-    n = idx.numel()
-    nblocks = -(-n // block_elems)
-    padded = torch.full((nblocks * block_elems,), (1 << b_bits) - 1,
-                        dtype=torch.int32, device=idx.device)
-    padded[:n] = idx
     words = kops.pack_bits(padded, b_bits=b_bits)
     raw = words.cpu().numpy().astype("<u4", copy=False).tobytes()
-    return pipe.split_packed(raw, nblocks, block_elems, b_bits)
+    return pipe.split_packed(raw, padded.numel() // block_elems, block_elems,
+                             b_bits)
+
+
+def symbol_entropy_route(params: NumarckParams, b_bits: int,
+                         k_eff: int) -> bool:
+    """Use the symbol-level (v2/NCK3) coder for this step's blocks?
+    Top-k only, and the {rank, marker} alphabet must fit the frequency
+    budget (k_eff + 1 <= 2^SCALE_BITS)."""
+    return (params.symbol_rans and params.strategy == STRATEGY_TOPK
+            and k_eff + 1 <= rans.M)
+
+
+def device_entropy_route(params: NumarckParams, n: int, b_bits: int) -> bool:
+    """Route the entropy stage to the codec's device encoder?  Blobs are
+    byte-identical either way; small payloads stay on the host codec."""
+    if not params.device_entropy or params.codec == entropy.AUTO_CODEC:
+        return False
+    try:
+        codec = entropy.get_codec(params.codec)
+    except ValueError:
+        return False
+    return codec.device and n * b_bits // 8 >= rans.DEVICE_MIN_BYTES
+
+
+def device_decode_route(step: CompressedStep) -> bool:
+    """Read a step through the device decode path?  Homogeneous
+    device-codec blocks and a payload of at least DEVICE_MIN_BYTES.  The
+    reconstruction is bit-identical either way, float64 included (torch
+    holds it natively, where the reference needs x64), so this is purely
+    a wall-clock choice."""
+    if step.block_codecs is not None:
+        return False
+    try:
+        codec = entropy.get_codec(step.codec)
+    except ValueError:
+        return False
+    if not codec.device:
+        return False
+    if step.is_anchor:
+        nbytes = step.n * np.dtype(step.dtype).itemsize
+    else:
+        nbytes = step.n * step.b_bits // 8
+    return nbytes >= rans.DEVICE_MIN_BYTES
 
 
 def encode_device(prev, curr, params: NumarckParams,
@@ -136,13 +195,25 @@ def encode_device(prev, curr, params: NumarckParams,
     centers = pipe.round_centers(centers, dtype)
     be = params.block_elems(b_bits)
     marker = (1 << b_bits) - 1
-    exc_counts = exc_pos = packed = None
+    exc_counts = exc_pos = packed = coded = coded_name = None
     if n:
         exc_counts, exc_pos = kops.exception_compact(idx, n, marker, be)
-        packed = _pack_blocks_device(idx, b_bits, be)
+        padded = _pad_blocks(idx, b_bits, be)
+        nblocks = padded.numel() // be
+        if not device_entropy_route(params, n, b_bits):
+            packed = _pack_blocks_device(padded, b_bits, be)
+        elif symbol_entropy_route(params, b_bits, k_eff):
+            # Device entropy stage: finalize takes the finished blobs.
+            coded = rans.compress_blocks_device_symbols(
+                padded, b_bits, k_eff, nblocks, be,
+                a["counts_desc"][:k_eff].cpu().numpy())
+        else:
+            coded = rans.compress_blocks_device(padded, b_bits, nblocks, be)
+        coded_name = params.codec if coded is not None else None
     enc = pipe.EncodedIndices(
         idx=idx.cpu().numpy() if need_host_idx else None, b_bits=b_bits,
-        block_elems=be, n=n, packed=packed, exc_positions=exc_pos,
+        block_elems=be, n=n, packed=packed, entropy_coded=coded,
+        entropy_codec=coded_name, exc_positions=exc_pos,
         exc_block_counts=exc_counts)
     meta = {"b_auto": int(a["b_auto"]),
             "est_sizes": a["est_sizes"].numpy().tolist(),
@@ -168,9 +239,22 @@ def compress_step(prev: np.ndarray, curr: np.ndarray, params: NumarckParams,
                               dev.domain_lo, dev.width, params, dev.meta)
 
 
-def decode_anchor(step: CompressedStep) -> np.ndarray:
-    """Host reconstruction of a losslessly stored anchor step."""
-    raw = b"".join(entropy.decompress_blocks(step.index_blocks, step.codec))
+def _torch_dtype(dtype) -> torch.dtype:
+    return torch.from_numpy(np.zeros(0, dtype)).dtype
+
+
+def decode_anchor(step: CompressedStep, device=None) -> np.ndarray:
+    """Reconstruction of a losslessly stored anchor step, on the host.
+    On the device decode route the rANS decode kernel inflates the blocks
+    on ``device`` (CUDA unless the caller asks for the CPU) and only the
+    finished bytes come back; otherwise the host codecs inflate them."""
+    dev = chainmod.resolve_device(device)
+    if device_decode_route(step):
+        raw = rans.decode_bytes_blocks_device(step.index_blocks,
+                                              dev).cpu().numpy().tobytes()
+    else:
+        raw = b"".join(entropy.decompress_blocks(step.index_blocks,
+                                                 step.codec))
     try:
         return np.frombuffer(raw, dtype=step.dtype).reshape(step.shape).copy()
     except ValueError as e:
@@ -179,6 +263,24 @@ def decode_anchor(step: CompressedStep) -> np.ndarray:
             f"{step.n * np.dtype(step.dtype).itemsize} for shape "
             f"{tuple(step.shape)} {step.dtype} ({e}) -- payload corrupt "
             "or truncated") from e
+
+
+def decode_anchor_device(step: CompressedStep, device=None) -> torch.Tensor:
+    """Anchor decode that leaves the reconstruction on ``device``: on the
+    device decode route the decoded bytes are viewed in place as
+    ``step.dtype``; otherwise the host decode is uploaded once.  The
+    result is identical either way."""
+    dev = chainmod.resolve_device(device)
+    if not device_decode_route(step):
+        return torch.from_numpy(decode_anchor(step, dev)).to(dev)
+    flat = rans.decode_bytes_blocks_device(step.index_blocks, dev)
+    want = step.n * np.dtype(step.dtype).itemsize
+    if flat.numel() != want:
+        raise IntegrityError(
+            f"anchor decode produced {flat.numel()} bytes, expected {want} "
+            f"for shape {tuple(step.shape)} {step.dtype} -- payload "
+            "corrupt or truncated")
+    return flat.view(_torch_dtype(step.dtype)).reshape(step.shape)
 
 
 def _decode_index_host(step: CompressedStep) -> np.ndarray:
@@ -202,14 +304,46 @@ def _decode_index_host(step: CompressedStep) -> np.ndarray:
     return idx
 
 
-def decompress_step(step: CompressedStep,
-                    prev: Optional[np.ndarray]) -> np.ndarray:
-    """Reconstruct R_i = R_{i-1} * (1 + center)  (corrected Eq. 4), on the
-    host, in the step's source precision (``reconstruction_dtype``)."""
-    if step.is_anchor:
-        return decode_anchor(step)
+def decompress_step_device(step: CompressedStep, prev,
+                           device=None) -> torch.Tensor:
+    """Device-resident reconstruction of one delta step: the rANS decode
+    kernel, the dequantize kernel, then the exception patch, with no host
+    round trip.  ``prev`` may be a host array or a tensor (the device
+    decompressor feeds its state straight back in).  Returns a
+    ``step.shape`` tensor of the source dtype, bit-identical to the host
+    ``decompress_step`` (same IEEE operations on the same values)."""
     if prev is None:
         raise ValueError("non-anchor steps need the previous state")
+    dev = (prev.device if isinstance(prev, torch.Tensor)
+           else chainmod.resolve_device(device))
+    cdt = _torch_dtype(pipe.reconstruction_dtype(step.dtype))
+    idx = rans.decode_blocks_device(step.index_blocks, step.b_bits,
+                                    step.block_elems, dev)
+    idx = idx.reshape(-1)[:step.n].contiguous()
+    prev_t = _to_device(prev, dev).reshape(-1).to(cdt).contiguous()
+    centers = torch.tensor(step.centers, device=dev).to(cdt)
+    recon = kops.dequantize(idx, prev_t, centers, b_bits=step.b_bits)
+    if step.n_incompressible:
+        recon = patch_exceptions(recon, idx,
+                                 torch.tensor(step.incomp_values, device=dev),
+                                 b_bits=step.b_bits)
+    return recon.to(_torch_dtype(step.dtype)).reshape(step.shape)
+
+
+def decompress_step(step: CompressedStep, prev: Optional[np.ndarray],
+                    device=None) -> np.ndarray:
+    """Reconstruct R_i = R_{i-1} * (1 + center)  (corrected Eq. 4) in the
+    step's source precision (``reconstruction_dtype``).  Steps on the
+    device decode route run on ``device`` (CUDA unless the caller asks
+    for the CPU) with one final copy to the host; the rest decode on the
+    host.  The result is bit-identical either way."""
+    dev = chainmod.resolve_device(device)
+    if step.is_anchor:
+        return decode_anchor(step, dev)
+    if prev is None:
+        raise ValueError("non-anchor steps need the previous state")
+    if device_decode_route(step):
+        return decompress_step_device(step, prev, dev).cpu().numpy()
     cdt = pipe.reconstruction_dtype(step.dtype)
     marker = (1 << step.b_bits) - 1
     idx = _decode_index_host(step)
@@ -299,13 +433,26 @@ class TemporalCompressor:
 
 
 class TemporalDecompressor:
-    """Streaming decompressor; mirrors TemporalCompressor state chaining."""
+    """Streaming decompressor; mirrors TemporalCompressor state chaining.
 
-    def __init__(self):
-        self._state: Optional[np.ndarray] = None
+    Runs on ``device`` (CUDA unless the caller asks for the CPU; no GPU
+    raises).  While consecutive steps take the device decode route the
+    state stays a tensor on the device between steps; ``add`` returns a
+    host copy.  Reconstructions are bit-identical across routes.
+    """
+
+    def __init__(self, device=None):
+        self.device = chainmod.resolve_device(device)
+        self._state = None          # np.ndarray, or a tensor on the device
 
     def add(self, step: CompressedStep) -> np.ndarray:
-        self._state = decompress_step(step, self._state)
+        if not step.is_anchor and device_decode_route(step):
+            self._state = decompress_step_device(step, self._state,
+                                                 self.device)
+            return self._state.to("cpu", copy=True).numpy()
+        prev = (self._state.cpu().numpy()
+                if isinstance(self._state, torch.Tensor) else self._state)
+        self._state = decompress_step(step, prev, self.device)
         return self._state
 
     def reset(self):
@@ -332,12 +479,16 @@ def compress_series(arrays, params: NumarckParams = NumarckParams(),
         c.close()
 
 
-def decompress_series(steps: List[CompressedStep]) -> List[np.ndarray]:
-    d = TemporalDecompressor()
+def decompress_series(steps: List[CompressedStep],
+                      device=None) -> List[np.ndarray]:
+    """Decompress a series on ``device`` (CUDA unless the caller asks for
+    the CPU)."""
+    d = TemporalDecompressor(device)
     return [d.add(s) for s in steps]
 
 
-__all__ = ["compress_step", "decompress_step", "make_anchor",
-           "decode_anchor", "encode_device", "DeviceEncoded",
-           "TemporalCompressor", "TemporalDecompressor", "compress_series",
-           "decompress_series"]
+__all__ = ["compress_step", "decompress_step", "decompress_step_device",
+           "make_anchor", "decode_anchor", "decode_anchor_device",
+           "encode_device", "device_entropy_route", "device_decode_route",
+           "symbol_entropy_route", "DeviceEncoded", "TemporalCompressor",
+           "TemporalDecompressor", "compress_series", "decompress_series"]

@@ -1,11 +1,11 @@
 """Pluggable host-side entropy stage with a parallel block dispatcher.
 
-Copy of the reference's ``core/entropy.py`` for the codecs the port has
-so far: ``zlib`` (default), ``raw`` (store), ``lzma`` and ``bz2``, plus
+Copy of the reference's ``core/entropy.py``: ``zlib`` (default), ``raw``
+(store), ``lzma``, ``bz2`` and ``rans`` (the interleaved rANS coder of
+``kernels.rans``, whose device flavor the drivers call directly), plus
 the ``"auto"`` pseudo-codec (per-payload and per-block choice from a
-sampled zlib probe).  All four release the GIL in their C code, so one
-shared thread pool gives real parallel speedup.  The rANS codec arrives
-in a later slice (see ROADMAP.md).
+sampled zlib probe).  The C codecs release the GIL, so one shared thread
+pool gives real parallel speedup.
 
 Blocks are grouped into tasks of at least ``_TARGET_TASK_BYTES`` so that
 submission overhead stays small; output is byte-identical to the serial
@@ -30,6 +30,12 @@ class Codec:
     """Entropy codec interface: bytes -> bytes, self-inverse via decompress."""
 
     name: str = "abstract"
+    # Pure-python codecs that never release the GIL (the reference sends
+    # them to a process pool; the port has none and keeps the flag).
+    holds_gil: bool = False
+    # Codecs with a device encoder and decoder (kernels.rans): the drivers
+    # code index blocks on the device, byte-identical to this host flavor.
+    device: bool = False
 
     def compress(self, raw: bytes, level: int) -> bytes:
         raise NotImplementedError
@@ -82,6 +88,28 @@ class Bz2Codec(Codec):
         return bz2.decompress(blob)
 
 
+class RansCodec(Codec):
+    """Block-parallel interleaved rANS (``kernels.rans``).
+
+    This registry entry is the host (NumPy) flavor; ``device=True`` tells
+    the drivers to code index blocks with the device flavor instead
+    (``kernels.rans.compress_blocks_device``), which emits the same
+    self-describing blobs, so files do not record which one made them.
+    Not ``holds_gil``, as in the reference.
+    """
+
+    name = "rans"
+    device = True
+
+    def compress(self, raw: bytes, level: int) -> bytes:
+        from repro_torch.kernels import rans
+        return rans.compress(raw)
+
+    def decompress(self, blob: bytes) -> bytes:
+        from repro_torch.kernels import rans
+        return rans.decompress(blob)
+
+
 DEFAULT_CODEC = "zlib"
 AUTO_CODEC = "auto"
 _REGISTRY: Dict[str, Codec] = {}
@@ -108,7 +136,7 @@ def validate_codec_id(name: str) -> str:
     return name
 
 
-for _c in (ZlibCodec(), RawCodec(), LzmaCodec(), Bz2Codec()):
+for _c in (ZlibCodec(), RawCodec(), LzmaCodec(), Bz2Codec(), RansCodec()):
     register_codec(_c)
 
 # ------------------------------------------------------ adaptive selection
@@ -259,6 +287,7 @@ def decompress_blocks(blobs: Sequence[bytes], codec: str = DEFAULT_CODEC,
 
 
 __all__ = ["Codec", "ZlibCodec", "RawCodec", "LzmaCodec", "Bz2Codec",
+           "RansCodec",
            "DEFAULT_CODEC", "AUTO_CODEC", "register_codec", "get_codec",
            "validate_codec_id", "choose_codec",
            "choose_block_codecs", "resolve_codec", "compress_blocks",

@@ -75,6 +75,11 @@ class EncodedIndices:
     ``block_elems``.  The port's driver fills it from the bit-pack kernel;
     None defers packing to the host packer here.
 
+    ``entropy_coded`` is the already-coded variant of that contract: the
+    device entropy stage (``kernels.rans``) hands finalize the finished
+    per-block blobs and the codec that made them, and finalize skips the
+    host entropy stage.
+
     ``exc_positions``/``exc_block_counts`` carry the device-computed
     exception compaction (``kernels.ops.exception_compact``).
     """
@@ -86,6 +91,8 @@ class EncodedIndices:
     block_elems: int
     n: Optional[int] = None    # element count; defaults to idx.size
     packed: Optional[List[bytes]] = None
+    entropy_coded: Optional[List[bytes]] = None
+    entropy_codec: Optional[str] = None
     exc_positions: Optional[np.ndarray] = None
     exc_block_counts: Optional[np.ndarray] = None
 
@@ -185,7 +192,9 @@ def finalize_step(curr: np.ndarray, enc: EncodedIndices,
                   centers: np.ndarray, domain_lo: float, width: float,
                   params: NumarckParams,
                   meta: Optional[dict] = None) -> CompressedStep:
-    """Shared host finalize: exceptions, parallel entropy stage, assembly."""
+    """Shared host finalize: exceptions, parallel entropy stage, assembly.
+    Blocks the device entropy stage already coded (``enc.entropy_coded``)
+    are taken as they are."""
     curr = np.asarray(curr)
     n = int(enc.n if enc.n is not None else enc.idx.size)
     if enc.exc_positions is not None:
@@ -197,29 +206,36 @@ def finalize_step(curr: np.ndarray, enc: EncodedIndices,
             enc.idx, enc.marker, enc.block_elems, curr.reshape(-1))
 
     block_codecs: Optional[List[str]] = None
-    raws = (enc.packed if enc.packed is not None
-            else pack_blocks_host(enc.idx, enc.b_bits, enc.block_elems))
-    raw_sizes = np.asarray([len(r) for r in raws], np.int64)
-    if params.codec == entropy.AUTO_CODEC and len(raws) > 1:
-        # Per-block adaptive pick; the step records concrete ids only (one
-        # per block when they differ).
-        per = entropy.choose_block_codecs(raws, params.zlib_level)
-        if len(set(per)) > 1:
-            codec = _primary_codec(per)
-            block_codecs = per
-            blks = entropy.compress_blocks_per_codec(
-                raws, per, level=params.zlib_level,
-                parallel=params.parallel_entropy)
-        else:
-            codec = per[0]
-            blks = entropy.compress_blocks(
-                raws, codec=codec, level=params.zlib_level,
-                parallel=params.parallel_entropy)
+    if enc.entropy_coded is not None:
+        blks = enc.entropy_coded
+        codec = enc.entropy_codec or entropy.DEFAULT_CODEC
+        bpb = enc.block_elems * enc.b_bits // 8
+        raw_sizes = np.full(len(blks), bpb, np.int64)
     else:
-        codec = entropy.resolve_codec(params.codec, raws, params.zlib_level)
-        blks = entropy.compress_blocks(raws, codec=codec,
-                                       level=params.zlib_level,
-                                       parallel=params.parallel_entropy)
+        raws = (enc.packed if enc.packed is not None
+                else pack_blocks_host(enc.idx, enc.b_bits, enc.block_elems))
+        raw_sizes = np.asarray([len(r) for r in raws], np.int64)
+        if params.codec == entropy.AUTO_CODEC and len(raws) > 1:
+            # Per-block adaptive pick; the step records concrete ids only
+            # (one per block when they differ).
+            per = entropy.choose_block_codecs(raws, params.zlib_level)
+            if len(set(per)) > 1:
+                codec = _primary_codec(per)
+                block_codecs = per
+                blks = entropy.compress_blocks_per_codec(
+                    raws, per, level=params.zlib_level,
+                    parallel=params.parallel_entropy)
+            else:
+                codec = per[0]
+                blks = entropy.compress_blocks(
+                    raws, codec=codec, level=params.zlib_level,
+                    parallel=params.parallel_entropy)
+        else:
+            codec = entropy.resolve_codec(params.codec, raws,
+                                          params.zlib_level)
+            blks = entropy.compress_blocks(raws, codec=codec,
+                                           level=params.zlib_level,
+                                           parallel=params.parallel_entropy)
     centers = round_centers(centers, curr.dtype)
     if centers.size > enc.marker:
         centers = centers[:enc.marker]

@@ -29,7 +29,7 @@ import torch
 # checkout's build/ (this file is <repo>/src/repro_torch/kernels).
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("change_ratio", "hist", "bitpack", "dequant")
+SOURCES = ("change_ratio", "hist", "bitpack", "dequant", "rans")
 # IEEE division and square root, denormals kept, no FMA contraction: the
 # port's contract is byte identity with the reference, and one ulp at a
 # bin edge moves a bin id.  Never add --use_fast_math.
@@ -104,7 +104,8 @@ def library(name: str) -> ctypes.CDLL:
 
 
 class Kernel:
-    """One CUDA source: its C entry points and a count of launches.
+    """One CUDA kernel: its C entry points in ``csrc/<lib>.cu`` (``lib``
+    defaults to the kernel's name) and a count of launches.
 
     ``launches`` is a plain integer that :meth:`launch` raises by one per
     successful launch and nothing else touches, so a caller can reset it
@@ -113,9 +114,10 @@ class Kernel:
 
     route = "cuda"
 
-    def __init__(self, name: str, replaces: str):
+    def __init__(self, name: str, replaces: str, lib: str = ""):
         self.name = name
-        self.source = f"src/repro_torch/csrc/{name}.cu"
+        self.lib = lib or name
+        self.source = f"src/repro_torch/csrc/{self.lib}.cu"
         self.replaces = replaces
         self.launches = 0
         self._fns: Dict[str, object] = {}
@@ -125,11 +127,11 @@ class Kernel:
         as the last argument) and raise if the launch was refused."""
         fn = self._fns.get(symbol)
         if fn is None:
-            lib = library(self.name)
+            lib = library(self.lib)
             fn = getattr(lib, symbol)
             fn.argtypes = [*argtypes, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-            err = getattr(lib, f"{self.name}_error_string")
+            err = getattr(lib, f"{self.lib}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
             self._fns[symbol] = fn

@@ -10,10 +10,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels import bitpack, change_ratio, dequant, hist
+from repro_torch.kernels import bitpack, change_ratio, dequant, hist, rans
 
-# The four kernels of the main path, for build checks and launch counts.
-KERNELS = (change_ratio.KERNEL, hist.KERNEL, bitpack.KERNEL, dequant.KERNEL)
+# Every kernel of the main paths, for build checks and launch counts: the
+# four of the compress path, then the rANS encode, decode and unpack.
+KERNELS = (change_ratio.KERNEL, hist.KERNEL, bitpack.KERNEL, dequant.KERNEL,
+           rans.ENCODE, rans.DECODE, rans.UNPACK)
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -55,6 +57,29 @@ def chain_advance(idx, prev, curr, centers, *, b_bits):
     return fn(idx, prev, curr, centers, b_bits=b_bits)
 
 
+def rans_encode(syms, fc, *, L):
+    fn = rans.encode_cuda if _on_cuda(syms) else rans.encode_plain
+    return fn(syms, fc, L=L)
+
+
+def rans_decode_bytes(dec, states, stream, n_emit, *, m, L):
+    fn = (rans.decode_bytes_cuda if _on_cuda(dec)
+          else rans.decode_bytes_plain)
+    return fn(dec, states, stream, n_emit, m=m, L=L)
+
+
+def rans_decode_syms(dec, sym_tab, states, stream, n_emit, *, m, L, n,
+                     n_sym, b_bits):
+    fn = rans.decode_syms_cuda if _on_cuda(dec) else rans.decode_syms_plain
+    return fn(dec, sym_tab, states, stream, n_emit, m=m, L=L, n=n,
+              n_sym=n_sym, b_bits=b_bits)
+
+
+def rans_unpack(byts, *, b_bits, be):
+    fn = rans.unpack_cuda if _on_cuda(byts) else rans.unpack_plain
+    return fn(byts, b_bits=b_bits, be=be)
+
+
 def exception_compact(idx, n, marker, block_elems):
     """Incompressible compaction for the encode stage: (per-block marker
     counts (nblocks,) int64, ascending marker positions (k,) int64), both
@@ -71,4 +96,5 @@ def exception_compact(idx, n, marker, block_elems):
 
 
 __all__ = ["KERNELS", "change_ratio_bins", "histogram", "pack_bits",
-           "dequantize", "chain_advance", "exception_compact"]
+           "dequantize", "chain_advance", "rans_encode", "rans_decode_bytes",
+           "rans_decode_syms", "rans_unpack", "exception_compact"]

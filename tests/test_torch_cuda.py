@@ -19,9 +19,17 @@ import repro_torch  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.core import ratios  # noqa: E402
 from repro_torch.data.temporal import generate_series  # noqa: E402
+from repro_torch.core import packing  # noqa: E402
 from repro_torch.kernels import bitpack, change_ratio, dequant, hist, ops  # noqa: E402
+from repro_torch.kernels import rans  # noqa: E402
 
 LO, WIDTH, MAX_BINS = -0.128, 0.002, 2048
+# Bytes (v1) or elements (v2) per block that make the coder use L lanes.
+RANS_SIZES = {32: 4096, 128: 16384, 512: 131072, 1024: 1 << 20}
+# Blob kind -> B: v1 codes packed B-bit bytes, v2 the indices over
+# 2^B symbols (64: the fused table; 1,024: the slot->symbol table too),
+# v0 is the raw store fallback of near-random bytes.
+RANS_B = {"v0": 8, "v1": 4, "v2": 6, "v2wide": 10}
 
 
 @pytest.fixture
@@ -70,6 +78,76 @@ def _dequant_inputs(b_bits, n, dtype, seed):
     prev = rng.normal(1, 0.5, n).astype(dtype)
     curr = rng.normal(1, 0.5, n).astype(dtype)
     return idx, prev, curr, centers
+
+
+def rans_indices(nb, be, b_bits, seed):
+    """(nb, be) B-bit indices with a geometric rank distribution and the
+    tail clipped to the marker, like a step's index table."""
+    rng = np.random.default_rng(seed)
+    marker = (1 << b_bits) - 1
+    return np.minimum(rng.geometric(0.35, (nb, be)) - 1,
+                      marker).astype(np.int32)
+
+
+def rans_encode_inputs(kind, L, nb=3, seed=0):
+    """(symbols, fused tables) of one encode launch whose blocks use L
+    lanes: v1 packed bytes with a table per block, v2 indices with one
+    shared table (as the drivers make them)."""
+    b = RANS_B[kind]
+    n = RANS_SIZES[L]
+    if kind == "v1":
+        be = n * 8 // b
+        idx = rans_indices(nb, be, b, seed)
+        byts = np.stack([packing.pack_indices_np(r, b) for r in idx])
+        _, fcs = rans.tables_from_samples(
+            byts[:, ::rans.sample_stride(n)])
+        return byts, fcs.view(np.int32)
+    idx = rans_indices(nb, n, b, seed)
+    k_eff = (1 << b) - 1
+    counts = np.bincount(idx.reshape(-1), minlength=k_eff + 1)
+    freq = rans.symbol_freq(counts[:k_eff], k_eff, idx.size)
+    return idx, rans.pack_fc(freq).view(np.int32)[None, :]
+
+
+def rans_blobs(kind, L, nb=3, seed=0):
+    """(blobs, B, block_elems) of nb index blocks coded with L lanes by
+    the host oracle (``rans.compress`` / ``compress_symbols``)."""
+    b = RANS_B[kind]
+    if kind in ("v0", "v1"):
+        n = RANS_SIZES[L]
+        be = n * 8 // b
+        if kind == "v0":
+            rng = np.random.default_rng(seed)
+            idx = rng.integers(0, 1 << b, (nb, be)).astype(np.int32)
+        else:
+            idx = rans_indices(nb, be, b, seed)
+        blobs = [rans.compress(packing.pack_indices_np(r, b).tobytes())
+                 for r in idx]
+        return blobs, b, be
+    be = RANS_SIZES[L]
+    idx = rans_indices(nb, be, b, seed)
+    k_eff = (1 << b) - 1
+    counts = np.bincount(idx.reshape(-1), minlength=k_eff + 1)
+    freq = rans.symbol_freq(counts[:k_eff], k_eff, idx.size)
+    return [rans.compress_symbols(r, b, freq) for r in idx], b, be
+
+
+def rans_version(kind):
+    return {"v0": 0, "v1": 1}.get(kind, 2)
+
+
+def corrupt_rans_blob(blob, how):
+    """A v1 blob with a truncated stream, a flipped final state, or a
+    frequency table that no longer sums to 4,096."""
+    n, L, freq, states, stream = rans._parse_v1(blob)
+    freq, states, stream = freq.copy(), states.copy(), stream.copy()
+    if how == "truncated":
+        stream = stream[:-3]
+    elif how == "state":
+        states[L // 2] ^= np.uint32(1 << 7)
+    else:
+        freq[5] += 1
+    return rans.assemble_blob(n, freq, states, stream)
 
 
 @pytest.mark.cuda
@@ -181,7 +259,11 @@ def test_cuda_series_matches_cpu_and_launches_every_kernel(cuda, name, steps,
     for k in ops.KERNELS:
         k.launches = 0
     got = repro_torch.compress_series(arrays, chain="device", device=cuda)
-    assert all(k.launches == steps - 1 for k in ops.KERNELS)
+    # The four compress kernels once per delta step; the default zlib
+    # codec runs no rANS kernel.
+    assert {k.name: k.launches for k in ops.KERNELS} == dict(
+        change_ratio=steps - 1, hist=steps - 1, bitpack=steps - 1,
+        dequant=steps - 1, rans_encode=0, rans_decode=0, rans_unpack=0)
     want = repro_torch.compress_series(arrays, chain="device", device="cpu")
     for g, w in zip(got, want):
         fg, fw = interop.step_to_fields(g), interop.step_to_fields(w)
@@ -190,3 +272,119 @@ def test_cuda_series_matches_cpu_and_launches_every_kernel(cuda, name, steps,
                 np.testing.assert_array_equal(fg[key], vw, err_msg=key)
             else:
                 assert fg[key] == vw, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", sorted(RANS_SIZES))
+@pytest.mark.parametrize("kind", ["v1", "v2", "v2wide"])
+def test_cuda_rans_encode_matches_plain(cuda, kind, L):
+    syms, fc = (torch.from_numpy(a).to(cuda)
+                for a in rans_encode_inputs(kind, L))
+    got = rans.encode_cuda(syms, fc, L=L)
+    want = rans.encode_plain(syms, fc, L=L)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", sorted(RANS_SIZES))
+@pytest.mark.parametrize("kind", ["v0", "v1", "v2", "v2wide"])
+def test_cuda_rans_decode_matches_plain(cuda, kind, L):
+    """Decode kernel (and unpack for v0/v1) against the plain versions on
+    the card, final states and pointers included, and the indices
+    against the host oracle."""
+    blobs, b, be = rans_blobs(kind, L)
+    assert {rans.blob_version(x) for x in blobs} == {rans_version(kind)}
+    if kind != "v0":
+        parsed = [dict(zip(("freq", "states", "stream"),
+                           (rans._parse_v1(x)[2:] if kind == "v1"
+                            else rans._parse_v2(x)[3:]))) for x in blobs]
+        dec, sym, states, stream, n_emit, _ = rans._upload_group(parsed,
+                                                                 cuda)
+        if kind == "v1":
+            m = -(-(be * b // 8) // L)
+            got = rans.decode_bytes_cuda(dec, states, stream, n_emit, m=m,
+                                         L=L)
+            want = rans.decode_bytes_plain(dec, states, stream, n_emit,
+                                           m=m, L=L)
+        else:
+            kw = dict(m=-(-be // L), L=L, n=be, n_sym=(1 << b), b_bits=b)
+            got = rans.decode_syms_cuda(dec, sym, states, stream, n_emit,
+                                        **kw)
+            want = rans.decode_syms_plain(dec, sym, states, stream, n_emit,
+                                          **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    idx = rans.decode_blocks_device(blobs, b, be, cuda)
+    oracle = np.stack([packing.unpack_indices_np(
+        np.frombuffer(rans.decompress(x), np.uint8), be, b) for x in blobs])
+    np.testing.assert_array_equal(idx.cpu().numpy(), oracle)
+
+
+@pytest.mark.cuda
+def test_cuda_rans_decodes_ragged_anchor_bytes(cuda):
+    rng = np.random.default_rng(3)
+    raws = [(rng.zipf(1.5, n) % 200).astype(np.uint8).tobytes()
+            for n in (1 << 20, 70_001, 1 << 20, 9_000, 31)]
+    raws.append(rng.integers(0, 256, 5000).astype(np.uint8).tobytes())
+    blobs = [rans.compress(r) for r in raws]
+    got = rans.decode_bytes_blocks_device(blobs, cuda)
+    assert got.cpu().numpy().tobytes() == b"".join(raws)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b_bits", range(1, 25))
+def test_cuda_rans_unpack_matches_plain(cuda, b_bits):
+    rng = np.random.default_rng(b_bits)
+    be = 32 * 1001
+    row = be * b_bits // 8 + 4 * (b_bits % 3)
+    byts = torch.from_numpy(rng.integers(0, 256, (3, row))
+                            .astype(np.uint8)).to(cuda)
+    got = rans.unpack_cuda(byts, b_bits=b_bits, be=be)
+    assert torch.equal(got, rans.unpack_plain(byts, b_bits=b_bits, be=be))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["truncated", "state", "table"])
+def test_cuda_rans_corrupt_blobs_raise(cuda, how):
+    blobs, b, be = rans_blobs("v1", 128)
+    blobs[1] = corrupt_rans_blob(blobs[1], how)
+    msg = ("corrupt rANS table" if how == "table"
+           else "stream not consumed cleanly")
+    for dev in (cuda, "cpu"):
+        with pytest.raises(ValueError, match=msg):
+            rans.decode_blocks_device(blobs, b, be, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("symbol_rans", [False, True])
+@pytest.mark.parametrize("name,steps,scale", [("stir", 4, 4), ("sedov", 3, 2)])
+def test_cuda_rans_series_matches_cpu(cuda, monkeypatch, name, steps, scale,
+                                      symbol_rans):
+    """codec="rans" through the device entropy stage and the device read
+    path: steps byte-identical to device="cpu", reconstructions bit-
+    identical, each kernel launched once per delta step."""
+    monkeypatch.setattr(rans, "DEVICE_MIN_BYTES", 0)
+    arrays = list(generate_series(name, steps, seed=0, scale=scale))
+    params = repro_torch.NumarckParams(codec="rans", symbol_rans=symbol_rans)
+    for k in ops.KERNELS:
+        k.launches = 0
+    got = repro_torch.compress_series(arrays, params, chain="device",
+                                      device=cuda)
+    assert rans.ENCODE.launches == steps - 1
+    assert bitpack.KERNEL.launches == (0 if symbol_rans else steps - 1)
+    want = repro_torch.compress_series(arrays, params, chain="device",
+                                       device="cpu")
+    for g, w in zip(got, want):
+        assert [bytes(x) for x in g.index_blocks] == \
+            [bytes(x) for x in w.index_blocks]
+        np.testing.assert_array_equal(g.incomp_values, w.incomp_values)
+    for k in ops.KERNELS:
+        k.launches = 0
+    recon = repro_torch.decompress_series(got, device=cuda)
+    assert dequant.KERNEL.launches == steps - 1
+    assert rans.DECODE.launches >= steps - 1
+    for a, r in zip(recon, repro_torch.decompress_series(want,
+                                                         device="cpu")):
+        assert a.dtype == r.dtype
+        np.testing.assert_array_equal(a, r)

@@ -24,10 +24,12 @@ from repro.core.container import NCKWriter  # noqa: E402
 from repro.core.types import CompressedStep as JStep  # noqa: E402
 from repro.core.types import NumarckParams as JParams  # noqa: E402
 from repro.data.temporal import generate_series as jseries  # noqa: E402
+from repro.kernels import rans as jrans  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.core import blocks as tblocks  # noqa: E402
 from repro_torch.core import compress as tcompress  # noqa: E402
 from repro_torch.data.temporal import generate_series as tseries  # noqa: E402
+from repro_torch.kernels import rans as trans  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 SERIES = {"stir_f32": ("stir", 4, 4), "sedov_f64": ("sedov", 3, 2)}
@@ -70,13 +72,51 @@ def test_compress_series_matches_jax(series, codec):
             _assert_steps_equal(got, want)
     # Decompressors agree bit for bit, and each decodes the other's steps.
     recon = jcompress.decompress_series(want)
-    for arrs in (repro_torch.decompress_series(got),
+    for arrs in (repro_torch.decompress_series(got, device="cpu"),
                  repro_torch.decompress_series(
                      [interop.step_from_fields(interop.step_to_fields(s))
-                      for s in want])):
+                      for s in want], device="cpu")):
         for a, b in zip(arrs, recon):
             assert a.dtype == b.dtype
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("symbol_rans", [False, True])
+def test_rans_series_matches_jax(series, symbol_rans, monkeypatch):
+    """codec="rans" through the device entropy stage (the kernels' plain
+    versions on the CPU) and the device read path: steps byte-identical
+    to the JAX package's device stage, reconstructions bit-identical to
+    its decompressor, f32 and f64."""
+    monkeypatch.setattr(jrans, "DEVICE_MIN_BYTES", 0)
+    monkeypatch.setattr(trans, "DEVICE_MIN_BYTES", 0)
+    calls = {"encode": 0, "decode": 0}
+
+    def spy(key, fn):
+        def wrapped(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(trans, "encode_plain",
+                        spy("encode", trans.encode_plain))
+    for name in ("decode_bytes_plain", "decode_syms_plain"):
+        monkeypatch.setattr(trans, name, spy("decode", getattr(trans, name)))
+    kw = dict(codec="rans", symbol_rans=symbol_rans)
+    want = jcompress.compress_series(series, JParams(**kw))
+    got = repro_torch.compress_series(series, repro_torch.NumarckParams(**kw),
+                                      chain="device", device="cpu")
+    _assert_steps_equal(got, want)
+    assert calls["encode"] == len(series) - 1
+    version = 2 if symbol_rans else 1
+    assert all(trans.blob_version(b) == version
+               for s in got[1:] for b in s.index_blocks)
+    recon = repro_torch.decompress_series(got, device="cpu")
+    assert calls["decode"] >= len(series) - 1
+    anchor = tcompress.decode_anchor_device(got[0], "cpu")
+    np.testing.assert_array_equal(anchor.numpy(), recon[0])
+    for a, b in zip(recon, jcompress.decompress_series(want)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("chain", ["host", "device"])
@@ -84,7 +124,7 @@ def test_reference_state_is_the_decompressed_step(series, chain):
     """The compressor's chain state after each step equals what the
     decompressor rebuilds from the finalized blobs."""
     c = repro_torch.TemporalCompressor(chain=chain, device="cpu")
-    d = repro_torch.TemporalDecompressor()
+    d = repro_torch.TemporalDecompressor(device="cpu")
     try:
         for a in series:
             recon = d.add(c.add(a))
@@ -139,6 +179,11 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcompress.encode_device(arrays[0], arrays[1],
                                 repro_torch.NumarckParams())
+    steps = repro_torch.compress_series(arrays, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.decompress_series(steps)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.TemporalDecompressor()
 
 
 @pytest.mark.parametrize("strategy", ["equal", "log", "kmeans"])
