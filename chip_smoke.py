@@ -28,7 +28,11 @@ Phases, each fatal on failure (exit code 1, no result line):
               across block edges and around exceptions equal the full
               decode; a flipped byte in a block raises CorruptBlockError.
   5. warm     one warm CMIP step, stage by stage (host clock), with zlib
-              and with rans, and one warm read step of each.
+              and with rans, and one warm read step of each.  Then the
+              rANS route on both sides of DEVICE_MIN_BYTES: one warm
+              step and its read through the host coder and through the
+              kernels, at Sedov's step and at CMIP steps cut to
+              ROUTE_SIZES elements; the routes must agree bit for bit.
   6. kernels  each kernel against its plain version on the card, exactly,
               at n = 42*360*240 (the CMIP step) and n = 2^26, with timings
               (median of 20 launches, CUDA events, after warm-up) beside
@@ -78,6 +82,8 @@ RANS_RUNS = {"cmip v1": ("cmip", dict(codec="rans")),
              "sedov v1": ("sedov", dict(codec="rans")),
              "sedov v2": ("sedov", dict(codec="rans", symbol_rans=True))}
 SCALE = 1                          # generate_series scale (1 = paper size)
+# CMIP steps cut to these element counts for the rANS route timing.
+ROUTE_SIZES = (1 << 15, 1 << 17, 1 << 19, 1 << 21)
 
 
 def log(msg: str) -> None:
@@ -288,6 +294,89 @@ def stage_times(torch, params, dev, first, step_in) -> tuple:
         step_in, enc.enc, enc.centers, enc.domain_lo, enc.width, params,
         enc.meta))
     return stages, step
+
+
+def route_times(torch, np, dev, data: dict) -> None:
+    """The rANS route at payloads around DEVICE_MIN_BYTES: one warm delta
+    step (encode + finalize, host clock) and its read, through the host
+    coder (threshold above the payload) and through the kernels
+    (threshold 0), median of three after a warm-up.  Sedov's step and
+    CMIP steps cut to ROUTE_SIZES elements.  The two routes must give the
+    same blobs and the same reconstruction, and only the kernel route may
+    launch the rANS kernels."""
+    from repro_torch.core import compress
+    from repro_torch.core.types import NumarckParams
+    from repro_torch.kernels import rans
+
+    p = NumarckParams(error_bound=E, codec="rans")
+    cases = {"sedov": (data["sedov"][0], data["sedov"][1])}
+    for n in ROUTE_SIZES:
+        cases[f"cmip[:{n}]"] = tuple(
+            np.ascontiguousarray(a.reshape(-1)[:n]) for a in data["cmip"][:2])
+    min_bytes = rans.DEVICE_MIN_BYTES
+    try:
+        for label, (first, step_in) in cases.items():
+            res = {}
+            for route, threshold in (("host", 1 << 62), ("kernels", 0)):
+                rans.DEVICE_MIN_BYTES = threshold
+                enc, read = [], []
+                for _ in range(4):
+                    (stages, step), got = counted(
+                        torch, [rans.ENCODE], lambda: stage_times(
+                            torch, p, dev, first, step_in))
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    recon, got_r = counted(
+                        torch, [rans.DECODE], lambda: compress.decompress_step(
+                            step, first, device=dev))
+                    read.append((time.perf_counter() - t0) * 1e3)
+                    enc.append(stages["encode"] + stages["finalize"])
+                if (got["rans_encode"] > 0) != (route == "kernels") or \
+                        (got_r["rans_decode"] > 0) != (route == "kernels"):
+                    raise AssertionError(f"route {label} {route}: launches "
+                                         f"{got} {got_r}")
+                res[route] = (statistics.median(enc[1:]),
+                              statistics.median(read[1:]), step, recon)
+            (he, hr, hs, hx), (ke, kr, ks, kx) = res["host"], res["kernels"]
+            if list(hs.index_blocks) != list(ks.index_blocks) or \
+                    not np.array_equal(hx, kx):
+                raise AssertionError(f"route {label}: the host coder and the "
+                                     "kernels disagree")
+            log(f"rans route {label}: n={first.size} {first.dtype} "
+                f"B={hs.b_bits}, payload {first.size * hs.b_bits // 8} bytes"
+                f" (what the threshold reads), coded as {len(hs.index_blocks)}"
+                f" marker-padded block(s) of {p.block_bytes} bytes; warm step "
+                "encode+finalize"
+                f" ms: host coder {he:.2f}, kernels {ke:.2f}; read ms: host "
+                f"coder {hr:.2f}, kernels {kr:.2f}; identical")
+    finally:
+        rans.DEVICE_MIN_BYTES = min_bytes
+    # The host coder (NumPy) against the encode's plain PyTorch version on
+    # CPU tensors, on one 1 MB block of the last case's bytes: the host
+    # route keeps the NumPy coder because it is the faster of the two.
+    raw = rans.decompress(hs.index_blocks[0])
+    arr = np.frombuffer(raw, np.uint8)
+    freq = rans.freq_table(arr)
+    fc = torch.from_numpy(rans.pack_fc(freq).view(np.int32)[None, :])
+    syms = torch.from_numpy(arr.copy()).view(1, -1)
+    L = rans.lanes_for(arr.size)
+    t_np, t_pt = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        want = rans.encode_np(arr, freq)
+        t_np.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        st, vals, masks = rans.encode_plain(syms, fc, L=L)
+        got = (st[0].numpy().view(np.uint32),
+               vals[masks].numpy().view(np.uint16))
+        t_pt.append((time.perf_counter() - t0) * 1e3)
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError("encode_plain on the CPU differs from "
+                                 "encode_np")
+    log(f"host rANS encode of one {arr.size}-byte block on the host CPU, ms "
+        f"(median of 3): NumPy coder {statistics.median(t_np):.1f}, plain "
+        f"PyTorch version on CPU tensors {statistics.median(t_pt):.1f}; "
+        "identical")
 
 
 def archive_phase(torch, np, dev, series: dict) -> dict:
@@ -681,6 +770,8 @@ def run(torch, np) -> dict:
             + "; read = decode_step, " + (
                 "rANS decode + unpack + dequantize kernels, patch"
                 if codec == "rans" else "host zlib route") + ")")
+
+    route_times(torch, np, dev, data)
 
     # -- 6. each kernel against its plain version, timed -------------------
     prev_big, curr_big = big_pair(np, N_BIG)

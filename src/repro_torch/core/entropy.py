@@ -30,9 +30,6 @@ class Codec:
     """Entropy codec interface: bytes -> bytes, self-inverse via decompress."""
 
     name: str = "abstract"
-    # Pure-python codecs that never release the GIL (the reference sends
-    # them to a process pool; the port has none and keeps the flag).
-    holds_gil: bool = False
     # Codecs with a device encoder and decoder (kernels.rans): the drivers
     # code index blocks on the device, byte-identical to this host flavor.
     device: bool = False
@@ -91,11 +88,10 @@ class Bz2Codec(Codec):
 class RansCodec(Codec):
     """Block-parallel interleaved rANS (``kernels.rans``).
 
-    This registry entry is the host (NumPy) flavor; ``device=True`` tells
+    This registry entry is the host flavor; ``device=True`` tells
     the drivers to code index blocks with the device flavor instead
     (``kernels.rans.compress_blocks_device``), which emits the same
     self-describing blobs, so files do not record which one made them.
-    Not ``holds_gil``, as in the reference.
     """
 
     name = "rans"

@@ -68,8 +68,11 @@ _V_RAW = 0
 _V_SYM = 2
 
 # Below this raw payload (total packed bytes of a step) the drivers keep
-# the host codec path: jit-cache churn and per-call dispatch would eat the
-# win.  Blobs are byte-identical either way, so this is pure routing.
+# the host coder.  The value is the reference's, so both packages route
+# the same steps; it is not tuned for the card, where the device route is
+# a few launches and one copy back.  chip_smoke.py times both routes at
+# small payloads (PERF.md gives the crossover).  Blobs are byte-identical
+# either way, so this is pure routing.
 DEVICE_MIN_BYTES = 256 << 10
 
 
@@ -485,19 +488,17 @@ def encode_plain(syms: torch.Tensor, fc: torch.Tensor, *, L: int):
     sy[:, :n] = syms.to(torch.int64).clamp(0, A - 1)
     v = torch.gather(_u32(fc).expand(nb, A), 1, sy).view(nb, m, L)
     f_all, c_all = v & 0x1FFF, v >> 13
+    lim = f_all << (32 - SCALE_BITS)    # (x >> 20) >= f  <=>  x >= f << 20
+    g_all = M - f_all                   # (q << 12) + x - q*f = x + q*(M-f)
     x = torch.full((nb, L), STATE_LO, dtype=torch.int64, device=dev)
-    vals = torch.empty((nb, m, L), dtype=torch.int64, device=dev)
-    masks = torch.empty((nb, m, L), dtype=torch.bool, device=dev)
+    pre = torch.empty((nb, m, L), dtype=torch.int64, device=dev)
     for j in range(m - 1, -1, -1):
-        f = f_all[:, j]
-        mask = (x >> (32 - SCALE_BITS)) >= f
-        vals[:, j] = x & 0xFFFF
-        masks[:, j] = mask
-        x = torch.where(mask, x >> 16, x)
-        q = x // f
-        x = ((q << SCALE_BITS) + (x - q * f) + c_all[:, j]) & _U32
-    return (_bits32(x), _bits16(vals.view(nb, m * L)),
-            masks.view(nb, m * L))
+        pre[:, j] = x                   # step j's state before renorm
+        x = torch.where(x >= lim[:, j], x >> 16, x)
+        q = x // f_all[:, j]
+        x = (x + q * g_all[:, j] + c_all[:, j]) & _U32
+    masks = (pre >= lim).view(nb, m * L)
+    return _bits32(x), _bits16(pre.view(nb, m * L) & 0xFFFF), masks
 
 
 def encode_cuda(syms: torch.Tensor, fc: torch.Tensor, *, L: int):
@@ -527,33 +528,36 @@ def encode_cuda(syms: torch.Tensor, fc: torch.Tensor, *, L: int):
     return states, vals, masks
 
 
-def _decode_loop(dec, sym_tab, states, stream, n_emit, m, L, emit):
-    """The plain lane loop of ``decode_scan_body``; ``emit(j, syms)``
-    takes step j's (nb, L) int64 symbols.  Returns final states (nb, L)
+def _decode_loop(dec, sym_tab, states, stream, n_emit, m, L):
+    """The plain lane loop of ``decode_scan_body`` over tables from
+    ``_decode_tables`` (their frequencies sum to M, so states stay below
+    2^32).  Returns the symbols (nb, m*L) int64, final states (nb, L)
     int32 and pointers (nb,) int64.  Stream reads at or past a block's
     ``n_emit`` give 0 (they only happen in blobs that then fail
     ``_check_decoded``)."""
     nb = dec.shape[0]
     S = stream.shape[1]
     d = _u32(dec)
+    f_tab, off_tab = d & 0xFFF, (d >> 12) & 0xFFF
     st = stream.to(torch.int64) & 0xFFFF
     x = _u32(states)
-    sym = None if sym_tab is None else sym_tab.to(torch.int64)
     ne = n_emit.to(torch.int64).view(nb, 1)
-    ptr = torch.zeros(nb, dtype=torch.int64, device=dec.device)
+    last = torch.full((nb, 1), -1, dtype=torch.int64, device=dec.device)
+    slots = torch.empty((nb, m, L), dtype=torch.int64, device=dec.device)
     for j in range(m):
         slot = x & (M - 1)
-        t = torch.gather(d, 1, slot)
-        emit(j, (t >> 24) if sym is None else torch.gather(sym, 1, slot))
-        x = ((t & 0xFFF) * (x >> SCALE_BITS) + ((t >> 12) & 0xFFF)) & _U32
+        slots[:, j] = slot
+        x = (torch.gather(f_tab, 1, slot) * (x >> SCALE_BITS)
+             + torch.gather(off_tab, 1, slot))
         need = x < STATE_LO
-        inc = need.to(torch.int64).cumsum(1)
-        pos = ptr.view(nb, 1) + inc - 1
+        pos = last + need.cumsum(1)     # stream position of each read
         nxt = torch.gather(st, 1, pos.clamp(0, S - 1))
         nxt = torch.where(pos < ne, nxt, 0)
-        x = torch.where(need, ((x << 16) | nxt) & _U32, x)
-        ptr = ptr + inc[:, -1]
-    return _bits32(x), ptr
+        x = torch.where(need, (x << 16) | nxt, x)
+        last = pos[:, -1:]
+    slots = slots.view(nb, m * L)
+    syms = (d >> 24) if sym_tab is None else sym_tab.to(torch.int64)
+    return torch.gather(syms, 1, slots), _bits32(x), last.view(nb) + 1
 
 
 def decode_bytes_plain(dec, states, stream, n_emit, *, m: int, L: int):
@@ -561,14 +565,8 @@ def decode_bytes_plain(dec, states, stream, n_emit, *, m: int, L: int):
     tables, states (nb, L) int32, stream (nb, S) int16 zero-padded,
     n_emit (nb,) int64 -> (bytes (nb, m*L) uint8, final states (nb, L)
     int32, final pointers (nb,) int64)."""
-    nb = dec.shape[0]
-    out = torch.empty((nb, m, L), dtype=torch.uint8, device=dec.device)
-
-    def emit(j, s):
-        out[:, j] = s.to(torch.uint8)
-
-    xf, ptrf = _decode_loop(dec, None, states, stream, n_emit, m, L, emit)
-    return out.view(nb, m * L), xf, ptrf
+    syms, xf, ptrf = _decode_loop(dec, None, states, stream, n_emit, m, L)
+    return syms.to(torch.uint8), xf, ptrf
 
 
 def decode_syms_plain(dec, sym_tab, states, stream, n_emit, *, m: int,
@@ -578,15 +576,9 @@ def decode_syms_plain(dec, sym_tab, states, stream, n_emit, *, m: int,
     (nb, 4096) int32 is the slot->symbol table of alphabets wider than
     256 (None otherwise).  Returns (idx (nb, n) int32, final states,
     final pointers)."""
-    nb = dec.shape[0]
-    out = torch.empty((nb, m, L), dtype=torch.int64, device=dec.device)
-
-    def emit(j, s):
-        out[:, j] = s
-
-    xf, ptrf = _decode_loop(dec, sym_tab, states, stream, n_emit, m, L,
-                            emit)
-    syms = out.view(nb, m * L)[:, :n]
+    syms, xf, ptrf = _decode_loop(dec, sym_tab, states, stream, n_emit, m,
+                                  L)
+    syms = syms[:, :n]
     idx = torch.where(syms >= n_sym - 1, (1 << b_bits) - 1, syms)
     return idx.to(torch.int32), xf, ptrf
 
