@@ -43,7 +43,12 @@ Phases, each fatal on failure (exit code 1, no result line):
               launch shape for each.  The rANS encode, decode and unpack
               kernels run on the CMIP step's blocks and on a 2^26-element
               step's, v1 and v2, with the format's parallelism beside
-              their bound.
+              their bound, and ns a step (the measure a chain of m
+              dependent steps is bound by).  The CMIP anchor's byte blocks
+              go through the rANS encode kernel as a measurement only (the
+              full blocks in one launch, the ragged last block in its own),
+              byte-identical to the host coder, both timed.  The card's
+              clocks and temperature are logged before and after.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last {"ok": true, "device": {...}}.  It needs the repo's
@@ -88,6 +93,15 @@ ROUTE_SIZES = (1 << 15, 1 << 17, 1 << 19, 1 << 21)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def log_clocks(label: str) -> None:
+    """The card's clocks and temperature, as nvidia-smi reads them."""
+    q = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm,"
+         "clocks.mem,temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    log(f"clocks {label}: {q.stdout.strip() or q.stderr.strip()}")
 
 
 def time_ms(torch, fn, iters: int = ITERS, warmup: int = 3) -> float:
@@ -604,14 +618,82 @@ def put_rans(table, kname, shape, rec, ms, plain_ms, nbytes, ops) -> None:
     fills the row's numbers, every shape goes under ``shapes``."""
     b, by = bound_ms(nbytes, ops, INT_OPS_PER_S)
     rec = dict(rec, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by)
+    if "steps" in rec:
+        rec["ns_per_step"] = ms * 1e6 / rec["steps"]
     row = table[kname]
     row.setdefault("shapes", {})[shape] = rec
     if "ms" not in row:
         row.update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
                    library_ms=None)
+        if "ns_per_step" in rec:
+            row["ns_per_step"] = rec["ns_per_step"]
     log(f"{kname} {shape}: {ms:.4f} ms ({b / ms:.1%} of the bound "
         f"{b:.4f} ms, {by}), plain {plain_ms:.2f} ms, exact; "
         f"{json.dumps({k: v for k, v in rec.items() if k not in ('ms', 'plain_ms', 'bound_ms', 'bound_by')})}")
+
+
+def anchor_encode(torch, np, dev, first, params, table) -> None:
+    """The CMIP anchor's byte blocks through the rANS encode kernel, as a
+    measurement only (anchors are coded by the host coder on the main
+    path): the full blocks in one launch, the ragged last block in its
+    own, each group's tables from its sampled bytes as in
+    ``rans.compress``.  The blobs must equal the host coder's; both routes
+    are timed on the host clock, the two launches with CUDA events."""
+    from repro_torch.kernels import rans
+
+    flat = first.reshape(-1)
+    be = params.block_bytes // flat.dtype.itemsize
+    raws = [flat[i:i + be].tobytes() for i in range(0, flat.size, be)]
+    groups = ([raws] if len(raws[-1]) == len(raws[0])
+              else [raws[:-1], raws[-1:]])
+    inputs = [(g, np.frombuffer(b"".join(g), np.uint8).reshape(len(g), -1)
+               .copy()) for g in groups]
+
+    def tables(arr):
+        return rans.tables_from_samples(
+            arr[:, ::rans.sample_stride(arr.shape[1])])
+
+    def kernel_route():
+        blobs = []
+        for g, arr in inputs:
+            freqs, fcs = tables(arr)
+            byts = torch.from_numpy(arr).to(dev)
+            fc = torch.from_numpy(fcs.view(np.int32)).to(dev)
+            states, streams = rans._run_encode(byts, fc)
+            blobs += [rans.assemble_blob(arr.shape[1], freqs[k], states[k],
+                                         streams[k],
+                                         raw_bytes=lambda r=g[k]: r)
+                      for k in range(len(g))]
+        return blobs
+
+    t0 = time.perf_counter()
+    host = [rans.compress(r) for r in raws]
+    host_ms = (time.perf_counter() - t0) * 1e3
+    kernel_route()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = kernel_route()
+    torch.cuda.synchronize()
+    route_ms = (time.perf_counter() - t0) * 1e3
+    if got != host:
+        raise AssertionError("anchor blocks: the encode kernel's blobs differ "
+                             "from the host coder's")
+    dev_in = [(torch.from_numpy(arr).to(dev),
+               torch.from_numpy(tables(arr)[1].view(np.int32)).to(dev),
+               rans.lanes_for(arr.shape[1])) for _, arr in inputs]
+    ms = time_ms(torch, lambda: [rans.encode_cuda(b, f, L=L)
+                                 for b, f, L in dev_in])
+    versions = sorted({rans.blob_version(o) for o in host})
+    rec = dict(blocks=len(raws), launches=len(dev_in),
+               block_bytes=[a.shape[1] for _, a in inputs],
+               blob_versions=versions, host_coder_ms=host_ms,
+               kernel_route_ms=route_ms, kernels_ms=ms)
+    table["rans_encode"].setdefault("shapes", {})["cmip anchor"] = rec
+    log(f"anchor rans_encode (measurement only): {len(raws)} blocks of the "
+        f"CMIP anchor in {len(dev_in)} launches, blob versions {versions}, "
+        f"byte-identical to the host coder; host coder {host_ms:.1f} ms, "
+        f"kernel route (tables, upload, launches, compaction, copies, "
+        f"assembly) {route_ms:.1f} ms, the launches alone {ms:.4f} ms")
 
 
 def run(torch, np) -> dict:
@@ -774,6 +856,7 @@ def run(torch, np) -> dict:
     route_times(torch, np, dev, data)
 
     # -- 6. each kernel against its plain version, timed -------------------
+    log_clocks("before the kernel phase")
     prev_big, curr_big = big_pair(np, N_BIG)
     pairs = {"cmip": (data["cmip"][0].reshape(-1), data["cmip"][1].reshape(-1)),
              "2^26": (prev_big, curr_big)}
@@ -904,6 +987,7 @@ def run(torch, np) -> dict:
 
     rans_kernel_phase(torch, np, dev, {"cmip": pairs["cmip"],
                                        "2^26": pairs["2^26"]}, table)
+    anchor_encode(torch, np, dev, data["cmip"][0], params, table)
 
     # The histogram on each id set: exact against its plain version, with
     # the launch shape the id bound gives.
@@ -934,6 +1018,7 @@ def run(torch, np) -> dict:
             table["hist"]["id_bound"] = bound
             table["hist"]["launch"] = plan
         del ids, valid_ids
+    log_clocks("after the kernel phase")
     return table
 
 

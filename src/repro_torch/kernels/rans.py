@@ -18,8 +18,7 @@ The host part -- tables, the NumPy coder (``encode_np``/``decode_np``),
 blob assembly and parsing, ``compress``/``decompress`` -- is a copy of
 the reference's and the oracle of everything below it.
 
-The device part runs the lane loops as hand-written CUDA
-(``csrc/rans.cu``), one CTA per block and one thread per lane:
+The device part runs the lane loops as hand-written CUDA (``csrc/rans.cu``):
 
   ``rans_encode``  replaces the reference's ``encode_bytes_body``
                    (src/repro/kernels/rans.py:424, a ``lax.scan``)
@@ -31,11 +30,15 @@ The device part runs the lane loops as hand-written CUDA
 Bound on the H100: neither bytes nor operations.  ``lanes_for`` is part
 of the blob format, so a block offers at most 1,024 lanes, each a chain
 of m = ceil(n / L) dependent steps (1,024 for a 1 MB v1 block, 2,048 for
-v2 at B = 4); the CMIP step has two blocks, so the card runs 2 CTAs of
-its 132 SMs x 2,048 thread slots.  The kernels keep everything per step
-on chip (the fused table in shared memory, the state in a register, one
-block-wide ballot scan per decode step) so each step costs a few dozen
-cycles; that chain length, not memory, sets their time.
+v2 at B = 4), and a kernel's time is m times one step's latency.  The
+encode's lanes are independent, so a block's lanes are spread over
+L / Lc CTAs (``encode_lanes_per_cta``; a CMIP step's two blocks run on
+16 SMs) and its division is a mul-hi by a reciprocal held in shared
+memory.  The decode's lanes share one stream pointer, so a block stays
+one CTA, each thread running four lanes; its stream arrives by bulk
+async copies into a ring in shared memory ahead of the pointer, so a
+step waits on shared loads, a barrier and a block reduction, not on L2
+or HBM.
 
 Beside each kernel is its plain PyTorch version: the same lane loop as
 vectors of nb*L lanes, in int64 masked to 32 bits (CPU ``torch.uint32``
@@ -87,6 +90,18 @@ def lanes_for(n: int) -> int:
     if n >= 8 << 10:
         return 128
     return 32
+
+
+def encode_lanes_per_cta(nb: int, L: int) -> int:
+    """Lanes of one CTA of the encode kernel for ``nb`` blocks of ``L``
+    lanes (the launch, not the format: each lane writes the same
+    positions whichever CTA runs it).  At most four warps, one per
+    scheduler of an SM, and at least two CTAs per block wherever a block
+    has more than one warp; L = 32 is a single warp.  The block count does
+    not enter: 64 and 128 lanes ran within 2 % of each other from 2 to 16
+    blocks, 256 up to 25 % slower (scripts/rans_bench.py, PERF.md)."""
+    del nb
+    return max(32, min(128, L // 2))
 
 
 def sample_stride(n: int) -> int:
@@ -420,9 +435,13 @@ def _check_decoded(xf: np.ndarray, ptrf: np.ndarray,
 def _batch_group(parsed: List[dict]):
     """Stack a homogeneous parsed-blob group for one kernel launch: fused
     decode tables (cached per distinct frequency table), states,
-    zero-padded stream matrix and per-block emission counts."""
+    zero-padded stream matrix and per-block emission counts.  Rows are
+    padded with zeros to a multiple of 8 words, so that every row starts
+    on a 16-byte boundary, where the decode kernel's bulk copies can
+    begin; the padding lies past each row's ``n_emit``, where every
+    decoder reads 0."""
     g = len(parsed)
-    smax = max(1, max(p["stream"].size for p in parsed))
+    smax = -(-max(1, max(p["stream"].size for p in parsed)) // 8) * 8
     states = np.stack([p["states"] for p in parsed]).astype(np.uint32)
     stream = np.zeros((g, smax), np.uint16)
     dec = np.empty((g, M), np.uint32)
@@ -502,8 +521,9 @@ def encode_plain(syms: torch.Tensor, fc: torch.Tensor, *, L: int):
 
 
 def encode_cuda(syms: torch.Tensor, fc: torch.Tensor, *, L: int):
-    """``encode_plain`` as one launch of ``rans_encode``: one CTA per
-    block, one thread per lane, the fused table in shared memory."""
+    """``encode_plain`` as one launch of ``rans_encode``: each block's
+    lanes over ``L / encode_lanes_per_cta(nb, L)`` CTAs, one thread per
+    lane, the fused table and the reciprocals in shared memory."""
     check_cuda("syms", syms, (torch.uint8, torch.int32))
     check_cuda("fc", fc, (torch.int32,))
     nb, n = syms.shape
@@ -521,11 +541,29 @@ def encode_cuda(syms: torch.Tensor, fc: torch.Tensor, *, L: int):
     if nb:
         sym = ("rans_encode_u8" if syms.dtype == torch.uint8
                else "rans_encode_i32")
-        ENCODE.launch(sym, (_P, _LL, _I, _P, _I, _I, _I, _P, _P, _P),
+        ENCODE.launch(sym, (_P, _LL, _I, _P, _I, _I, _I, _I, _P, _P, _P),
                       syms.data_ptr(), n, nb, fc.data_ptr(), A,
-                      A if fc.shape[0] == nb else 0, L, states.data_ptr(),
+                      A if fc.shape[0] == nb else 0, L,
+                      encode_lanes_per_cta(nb, L), states.data_ptr(),
                       vals.data_ptr(), masks.data_ptr())
     return states, vals, masks
+
+
+# The encode kernel's division on its own (tests only; not on any path).
+_DIVIDE = Kernel("rans_divide", replaces="src/repro/kernels/rans.py:424",
+                 lib="rans")
+
+
+def divide_cuda(x: torch.Tensor, f: torch.Tensor):
+    """floor(x / f) and x mod f as ``rans_encode`` computes them, for int32
+    tensors holding u32 bits, f >= 1: (q, r) int32."""
+    check_cuda("x", x, (torch.int32,))
+    check_cuda("f", f, (torch.int32,), x.numel())
+    q, r = torch.empty_like(x), torch.empty_like(x)
+    if x.numel():
+        _DIVIDE.launch("rans_divide", (_P, _P, _LL, _P, _P), x.data_ptr(),
+                       f.data_ptr(), x.numel(), q.data_ptr(), r.data_ptr())
+    return q, r
 
 
 def _decode_loop(dec, sym_tab, states, stream, n_emit, m, L):
@@ -597,6 +635,8 @@ def _check_decode_args(dec, sym_tab, states, stream, n_emit, L):
         raise ValueError("stream must be (nb, S >= 1)")
     if L not in (32, 128, 512, 1024):
         raise ValueError(f"L={L} is not a lane count of the format")
+    if any(t is not None and t.data_ptr() % 16 for t in (dec, sym_tab)):
+        raise ValueError("dec and sym_tab must start on a 16-byte boundary")
     return nb
 
 
@@ -866,12 +906,12 @@ def decode_bytes_blocks_device(blobs: Sequence[bytes],
 
 
 __all__ = ["SCALE_BITS", "M", "STATE_LO", "DEVICE_MIN_BYTES", "lanes_for",
-           "sample_stride", "freq_from_counts", "freq_table", "pack_fc",
+           "encode_lanes_per_cta", "sample_stride", "freq_from_counts", "freq_table", "pack_fc",
            "encode_np", "decode_np", "blob_nbytes", "assemble_blob",
            "blob_nbytes_sym", "assemble_symbol_blob", "symbol_freq",
            "compress_symbols", "blob_version", "compress", "decompress",
            "tables_from_samples", "ENCODE", "DECODE", "UNPACK",
-           "encode_plain", "encode_cuda", "decode_bytes_plain",
+           "encode_plain", "encode_cuda", "divide_cuda", "decode_bytes_plain",
            "decode_bytes_cuda", "decode_syms_plain", "decode_syms_cuda",
            "unpack_plain", "unpack_cuda", "compress_blocks_device",
            "compress_blocks_device_symbols", "decode_blocks_device",

@@ -388,3 +388,149 @@ def test_cuda_rans_series_matches_cpu(cuda, monkeypatch, name, steps, scale,
                                                          device="cpu")):
         assert a.dtype == r.dtype
         np.testing.assert_array_equal(a, r)
+
+
+def dense_symbol_blobs(nb=3, be=1 << 20, seed=0):
+    """v2 blobs of uniform 12-bit symbols: every frequency is 1, so each
+    decode step takes 12 bits and about three of every four steps of every
+    lane read a word (the densest stream 12-bit frequencies allow).  The
+    blobs are assembled without the store fallback, which would win."""
+    b = 12
+    idx = np.random.default_rng(seed).integers(0, 1 << b, (nb, be))
+    freq = rans.symbol_freq(np.ones((1 << b) - 1), (1 << b) - 1, idx.size)
+    assert (freq == 1).all()
+    blobs = []
+    for r in idx:
+        states, stream = rans.encode_np(r, freq)
+        blobs.append(rans.assemble_symbol_blob(be, b, freq, states, stream))
+    return blobs, b, be
+
+
+def ring_case(kind):
+    """(decode function pair, positional args on the CPU, keywords) of one
+    decode launch whose streams exercise the ring of the decode kernel."""
+    if kind == "dense":
+        blobs, b, be = dense_symbol_blobs()
+    elif kind == "empty":
+        blobs = [rans.compress(bytes(4096))] * 2    # n_emit = 0
+        b, be = 8, 4096
+    else:    # "short" and "odd_S": streams below one 2,048-word stage
+        blobs, b, be = rans_blobs("v1", 32)
+    v1 = rans.blob_version(blobs[0]) == 1
+    parsed = [dict(zip(("freq", "states", "stream"),
+                       rans._parse_v1(x)[2:] if v1 else rans._parse_v2(x)[3:]))
+              for x in blobs]
+    dec, sym, states, stream, n_emit = rans._batch_group(parsed)
+    if kind == "odd_S":
+        # Rows of an odd length start at every 2-byte offset mod 16: the
+        # kernel reads their unaligned head and tail with plain loads.
+        S = int(n_emit.max()) + 3
+        stream = np.zeros((len(parsed), S), np.uint16)
+        for i, p in enumerate(parsed):
+            stream[i, :p["stream"].size] = p["stream"]
+    L = parsed[0]["states"].size
+    t = torch.from_numpy
+    args = [t(dec.view(np.int32)), t(states.view(np.int32)),
+            t(stream.view(np.int16)), t(n_emit)]
+    if v1:
+        return ((rans.decode_bytes_cuda, rans.decode_bytes_plain), args,
+                dict(m=-(-(be * b // 8) // L), L=L), n_emit)
+    args.insert(1, None if sym is None else t(sym))
+    return ((rans.decode_syms_cuda, rans.decode_syms_plain), args,
+            dict(m=-(-be // L), L=L, n=be, n_sym=parsed[0]["freq"].size,
+                 b_bits=b), n_emit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "short", "odd_S", "empty"])
+def test_cuda_rans_decode_ring_streams(cuda, kind):
+    """Streams that cross hundreds of ring stages (dense), that fit in one
+    stage, that are empty, and rows of an odd length S: the decode kernel
+    against its plain version, final states and pointers included."""
+    (fn_c, fn_p), args, kw, n_emit = ring_case(kind)
+    if kind == "odd_S":
+        assert args[2].shape[1] % 8
+    if kind == "dense":
+        assert n_emit.min() > 100 * 2048
+    dev_args = [None if a is None else a.to(cuda) for a in args]
+    got = fn_c(*dev_args, **kw)
+    want = fn_p(*dev_args, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    rans._checked(got[1], got[2], n_emit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["cut_to_a_tenth", "extra_words"])
+def test_cuda_rans_decode_reads_past_n_emit(cuda, how):
+    """A stream cut far short (the decode reads past n_emit, which gives 0)
+    and one with words the decode never reaches (copies still in flight
+    when it ends): the kernel equals the plain version and the device
+    route raises the reference's message."""
+    blobs, b, be = rans_blobs("v1", 1024, nb=2)
+    n, L, freq, states, stream = rans._parse_v1(blobs[1])
+    if how == "cut_to_a_tenth":
+        stream = stream[:stream.size // 10]
+    else:
+        stream = np.concatenate([stream, np.arange(9000, dtype=np.uint16)])
+    blobs[1] = rans.assemble_blob(n, freq, states, stream)
+    parsed = [dict(zip(("freq", "states", "stream"), rans._parse_v1(x)[2:]))
+              for x in blobs]
+    dec, _, st, sm, ne, ne_np = rans._upload_group(parsed, cuda)
+    kw = dict(m=-(-n // L), L=L)
+    got = rans.decode_bytes_cuda(dec, st, sm, ne, **kw)
+    for g, w in zip(got, rans.decode_bytes_plain(dec, st, sm, ne, **kw)):
+        assert torch.equal(g, w)
+    for dev in (cuda, "cpu"):
+        with pytest.raises(ValueError,
+                           match="stream not consumed cleanly"):
+            rans.decode_blocks_device(blobs, b, be, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", sorted(RANS_SIZES))
+@pytest.mark.parametrize("kind", ["v1", "v2wide"])
+def test_cuda_rans_encode_every_block_count(cuda, kind, L):
+    """The encode at the planner's lanes per CTA for L, for 1..16 blocks
+    of a ragged length (n not a multiple of L): block k of every launch
+    equals block k of the plain version."""
+    syms, fc = rans_encode_inputs(kind, L, nb=16, seed=L)
+    n = syms.shape[1] - 13
+    syms = torch.from_numpy(np.ascontiguousarray(syms[:, :n])).to(cuda)
+    fc = torch.from_numpy(fc).to(cuda)
+    want = rans.encode_plain(syms, fc, L=L)
+    m = -(-n // L)
+    for nb in range(1, 17):
+        lc = rans.encode_lanes_per_cta(nb, L)
+        assert L // lc >= (2 if L > 32 else 1)
+        got = rans.encode_cuda(syms[:nb].contiguous(),
+                               fc[:nb] if fc.shape[0] > 1 else fc, L=L)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w[:nb]), (nb, lc, m)
+
+
+@pytest.mark.cuda
+def test_cuda_rans_divide_matches_floor_division(cuda):
+    """The encode's reciprocal division against // for every frequency
+    1..4095: x = k*f - 1 and k*f at both ends of the reachable range
+    (x < f * 2^20), x = f * 2^20 - 1, random x below f * 2^20, and (the
+    mul-hi is exact for every u32) x = 2^32 - 1 and random u32 x."""
+    rng = np.random.default_rng(0)
+    f = np.arange(1, 4096, dtype=np.int64)
+    top = f << 20
+    ks = np.array([1, 2, 3, (1 << 20) - 2, (1 << 20) - 1], np.int64)
+    kf = np.tile(f, ks.size)
+    kx = np.repeat(ks, f.size) * kf
+    xs = [(kx, kf), (kx - 1, kf), (top - 1, f), (0 * f, f)]
+    xs += [((rng.random(f.size) * top).astype(np.int64), f)
+           for _ in range(64)]
+    xs += [(np.full_like(f, (1 << 32) - 1), f),
+           (rng.integers(0, 1 << 32, f.size), f)]
+    x = np.concatenate([a for a, _ in xs])
+    ff = np.concatenate([b for _, b in xs])
+    assert (x >= 0).all() and (x < 1 << 32).all()
+    q, r = rans.divide_cuda(
+        *(torch.from_numpy(a.astype(np.uint32).view(np.int32)).to(cuda)
+          for a in (x, ff)))
+    np.testing.assert_array_equal(q.cpu().numpy().view(np.uint32), x // ff)
+    np.testing.assert_array_equal(r.cpu().numpy().view(np.uint32), x % ff)

@@ -200,3 +200,56 @@ def test_corrupt_blob_raises_like_reference(how, route):
     assert type(errs[0]) is type(errs[1]) is ValueError
     assert str(errs[0]) == str(errs[1])
     assert str(errs[0]).startswith("corrupt rANS")
+
+
+@pytest.mark.parametrize("L", [32, 128, 512, 1024])
+def test_encode_lanes_per_cta_plan(L):
+    """The encode's lanes per CTA, for every lane count of the format and
+    1..132 blocks: whole warps that divide L, at most 256 (the kernel's
+    launch bound), and more than one CTA per block wherever a block has
+    more than one warp."""
+    for nb in range(1, 133):
+        lc = rans.encode_lanes_per_cta(nb, L)
+        assert lc % 32 == 0 and L % lc == 0 and 32 <= lc <= 256, (nb, lc)
+        assert L // lc >= (2 if L > 32 else 1), (nb, lc)
+
+
+@pytest.mark.parametrize("L", [32, 128])
+@pytest.mark.parametrize("kind", ["v1", "v2", "v2wide"])
+def test_padded_stream_group_decodes_like_unpadded(kind, L):
+    """``_batch_group`` pads the stream rows to a multiple of 8 words for
+    the decode kernel's bulk copies; the plain decode and
+    ``_check_decoded`` see the same as with rows of the longest stream's
+    length, and the symbols are the host oracle's."""
+    blobs, b, be = rans_blobs(kind, L, nb=3, seed=L)
+    parse = rans._parse_v1 if kind == "v1" else rans._parse_v2
+    skip = 2 if kind == "v1" else 3
+    parsed = [dict(zip(("freq", "states", "stream"), parse(x)[skip:]))
+              for x in blobs]
+    dec, sym, states, stream, n_emit = rans._batch_group(parsed)
+    assert stream.shape[1] % 8 == 0
+    assert not stream[:, int(n_emit.max()):].any()
+    tight = stream[:, :int(n_emit.max())].copy()
+    n = be * b // 8 if kind == "v1" else be
+    m = -(-n // L)
+    outs = []
+    for rows in (stream, tight):
+        args = [torch.from_numpy(dec.view(np.int32)),
+                torch.from_numpy(states.view(np.int32)),
+                torch.from_numpy(rows.view(np.int16)),
+                torch.from_numpy(n_emit)]
+        if kind == "v1":
+            out = rans.decode_bytes_plain(*args, m=m, L=L)
+        else:
+            out = rans.decode_syms_plain(
+                args[0], None if sym is None else torch.from_numpy(sym),
+                *args[1:], m=m, L=L, n=be, n_sym=parsed[0]["freq"].size,
+                b_bits=b)
+        rans._check_decoded(out[1].numpy().view(np.uint32), out[2].numpy(),
+                            n_emit)
+        outs.append(out)
+    for g, w in zip(*outs):
+        assert torch.equal(g, w)
+    if kind == "v1":
+        want = [rans.decompress(x) for x in blobs]
+        assert [bytes(r[:be * b // 8].numpy()) for r in outs[0][0]] == want
