@@ -40,7 +40,11 @@ Phases, each fatal on failure (exit code 1, no result line):
               histogram runs on the id sets of `hist_id_sets` (the CMIP
               step's ids with the main path's id bound, the 2^26 pair, a
               wide-domain 2^26 pair, one-bin and uniform ids) and logs its
-              launch shape for each.  The rANS encode, decode and unpack
+              launch shape for each.  The bit-pack kernel runs at every
+              B = 1..24 at both sizes, and the unpack kernel on the whole
+              blocks of its words (exact, and a round trip); the kernels
+              line gives both kernels' ms and share of the bound at each B
+              under ``by_b``.  The rANS encode, decode and unpack
               kernels run on the CMIP step's blocks and on a 2^26-element
               step's, v1 and v2, with the format's parallelism beside
               their bound, and ns a step (the measure a chain of m
@@ -632,6 +636,42 @@ def put_rans(table, kname, shape, rec, ms, plain_ms, nbytes, ops) -> None:
         f"{json.dumps({k: v for k, v in rec.items() if k not in ('ms', 'plain_ms', 'bound_ms', 'bound_by')})}")
 
 
+def pack_input(torch, dev, gen, n: int, b: int, params, main: bool):
+    """Random B-bit indices for the bit-pack kernel at one size, and the
+    block length be of B: the CMIP step padded to whole blocks as the
+    main path packs it (``main``), else exactly n."""
+    be = params.block_elems(b)
+    n_pad = -(-n // be) * be if main else n
+    idx = torch.randint(0, 1 << b, (n_pad,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    return idx, be
+
+
+def unpack_rows(torch, words, n: int, be: int, b: int):
+    """The packed words of the whole blocks among n indices, as the
+    (blocks, be * B / 8) byte rows the unpack kernel takes."""
+    nb = n // be
+    return words[:nb * be * b // 32].view(torch.uint8).view(nb, be * b // 8)
+
+
+def pack_bytes(n: int, b: int) -> int:
+    """Bytes the bit-pack kernel must move: n int32 in, n * B / 8 out."""
+    return 4 * n + n * b // 8
+
+
+def unpack_bytes(nb: int, be: int, b: int) -> int:
+    """Bytes the unpack kernel must move: nb rows of be * B / 8 in,
+    nb * be int32 out."""
+    return nb * be * b // 8 + 4 * nb * be
+
+
+def put_by_b(table, kname, label, b, ms, nbytes, ops) -> None:
+    """One kernel's time at one B under ``by_b``, beside its bound."""
+    bound, by = bound_ms(nbytes, ops, INT_OPS_PER_S)
+    table[kname].setdefault("by_b", {}).setdefault(label, {})[b] = dict(
+        ms=ms, bound_ms=bound, bound_by=by, share=bound / ms)
+
+
 def anchor_encode(torch, np, dev, first, params, table) -> None:
     """The CMIP anchor's byte blocks through the rANS encode kernel, as a
     measurement only (anchors are coded by the host coder on the main
@@ -923,12 +963,10 @@ def run(torch, np) -> dict:
             del got, p, c
 
         gen = torch.Generator(device=dev).manual_seed(n)
-        line = []
+        line, uline = [], []
         for b in range(1, 25):
-            be = params.block_elems(b)
-            n_pad = -(-n // be) * be if main else n
-            idx = torch.randint(0, 1 << b, (n_pad,), generator=gen,
-                                device=dev, dtype=torch.int32)
+            idx, be = pack_input(torch, dev, gen, n, b, params, main)
+            n_pad = idx.numel()
             got = bitpack.pack_bits_cuda(idx, b_bits=b)
             check("bitpack", got, bitpack.pack_bits_plain(idx, b_bits=b))
             if main and b in (b_main, 8, 24):
@@ -939,15 +977,37 @@ def run(torch, np) -> dict:
                                          "pack_indices_np")
             ms = time_ms(torch, lambda: bitpack.pack_bits_cuda(idx, b_bits=b))
             line.append(f"B{b}={ms:.4f}")
-            nbytes = 4 * n_pad + 4 * n_pad * b // 32
+            nbytes = pack_bytes(n_pad, b)
+            put_by_b(table, "bitpack", label, b, ms, nbytes, 3 * n_pad)
             if main and b == b_main:
                 plain_ms = time_ms(torch, lambda: bitpack.pack_bits_plain(
                     idx, b_bits=b))
                 record("bitpack", ms, plain_ms, nbytes, 3 * n_pad,
                        FP32_OPS_PER_S)
-            del idx, got
+            # The unpack of the same words, as whole blocks of be indices:
+            # exact against its plain version and a round trip.
+            byts = unpack_rows(torch, got, n_pad, be, b)
+            nb = byts.shape[0]
+            out = rans.unpack_cuda(byts, b_bits=b, be=be)
+            check("rans_unpack", out, rans.unpack_plain(byts, b_bits=b,
+                                                        be=be))
+            if not torch.equal(out.view(-1), idx[:nb * be]):
+                raise AssertionError(f"rans_unpack B={b}: the unpack of the "
+                                     "packed indices differs from them")
+            ms = time_ms(torch, lambda: rans.unpack_cuda(byts, b_bits=b,
+                                                         be=be))
+            uline.append(f"B{b}={ms:.4f}")
+            put_by_b(table, "rans_unpack", label, b, ms,
+                     unpack_bytes(nb, be, b), 6 * nb * be)
+            del idx, got, byts, out
         log(f"bitpack {label} n={n}{' (block-padded)' if main else ''} ms: "
             + " ".join(line) + ", all exact")
+        log(f"rans_unpack {label} (whole blocks of the packed words) ms: "
+            + " ".join(uline) + ", all exact and round trips")
+        log(f"share of the bound by B, {label}: " + json.dumps(
+            {k: {b: round(r["share"], 3) for b, r in
+                 table[k]["by_b"][label].items()}
+             for k in ("bitpack", "rans_unpack")}))
 
         for dtype in (torch.float32, torch.float64):
             rate = FP32_OPS_PER_S if dtype == torch.float32 else FP64_OPS_PER_S

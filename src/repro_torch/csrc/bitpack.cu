@@ -9,63 +9,106 @@
 // shift is a compile-time constant and the B words stay in registers.
 //
 // Bound on the H100: bytes (128 B read and 4*B B written per group, a
-// handful of integer ops).  A thread reads its group as eight 16-byte
-// loads; neighbouring threads read neighbouring 128-byte lines, which L1
-// serves after the first load of each line.  Writes are 4-byte stores at a
-// stride of B words; staging them through shared memory for full
-// coalescing is left for a later change.
+// handful of integer ops), so the design is about access shape.  A thread
+// that reads its own group and writes its own B words makes every warp
+// instruction touch 32 lines (a 4-byte store at a stride of 4*B bytes),
+// which held the first version of this kernel to 15 % of the bound at
+// B = 24 (PERF.md).  Here a CTA streams tiles of kTileGroups groups
+// through shared memory (bitgroup.cuh): the tile's indices come in as
+// 16-byte loads, neighbouring threads on neighbouring addresses; each
+// thread packs its group from the swizzled chunks into registers and
+// leaves its B words in the padded word layout; the tile's
+// kTileGroups*B words (a multiple of 16 bytes for every B) go out as
+// contiguous 16-byte stores.  A ragged last tile loads, packs and stores
+// only its groups (its last 1-3 words with 4-byte stores).  The grid
+// covers the tiles, at most 16 CTAs an SM's worth (registers and shared
+// memory let 4-11 run at once, by B; more than one wave of CTAs balances
+// the tail better than one, PERF.md), each looping over tiles.
 //
 // The caller packs the whole marker-padded index table in one launch and
 // slices it per block on the host: block_elems is a multiple of 32, so
 // every block spans whole words.
+#include <cstdint>
+
+#include "bitgroup.cuh"
 #include "common.cuh"
 
+namespace {
+
 template <int B>
-__global__ void pack_bits_kernel(const int* __restrict__ idx,
-                                 unsigned* __restrict__ out,
-                                 long long groups) {
-  constexpr unsigned kMask = (1u << B) - 1u;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       g < groups; g += stride) {
-    unsigned w[B];
+__global__ void __launch_bounds__(kTileThreads)
+    pack_bits_kernel(const int4* __restrict__ idx, uint4* __restrict__ out,
+                     long long groups) {
+  __shared__ int4 chunks[kTileGroups * 8];
+  __shared__ unsigned words[tile_word_slots<B>()];
+  const int t = threadIdx.x;
+  for (long long g0 = static_cast<long long>(blockIdx.x) * kTileGroups;
+       g0 < groups; g0 += static_cast<long long>(gridDim.x) * kTileGroups) {
+    const int gt = static_cast<int>(
+        groups - g0 < kTileGroups ? groups - g0 : kTileGroups);
+    // The tile's indices: 8 16-byte chunks a group, all loads in flight
+    // before the first shared store.
+    const int4* src = idx + g0 * 8;
+    int4 v[8];
 #pragma unroll
-    for (int k = 0; k < B; ++k) w[k] = 0u;
-    const int4* src = reinterpret_cast<const int4*>(idx + g * 32);
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int4 v4 = __ldg(src + q);
-      const int vals[4] = {v4.x, v4.y, v4.z, v4.w};
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int bit0 = (q * 4 + t) * B;
-        const int wi = bit0 / 32;
-        const int s = bit0 % 32;
-        const unsigned v = static_cast<unsigned>(vals[t]) & kMask;
-        w[wi] |= v << s;
-        if (s + B > 32) w[wi + 1] |= v >> (32 - s);  // spills into the next word
-      }
+    for (int i = 0; i < 8; ++i) {
+      const int c = i * kTileThreads + t;
+      if (c < gt * 8) v[i] = __ldg(src + c);
     }
-    unsigned* dst = out + g * B;
 #pragma unroll
-    for (int k = 0; k < B; ++k) dst[k] = w[k];
+    for (int i = 0; i < 8; ++i) {
+      const int c = i * kTileThreads + t;
+      if (c < gt * 8) chunks[chunk_slot(c)] = v[i];
+    }
+    __syncthreads();
+    if (t < gt) {
+      unsigned w[B];
+#pragma unroll
+      for (int k = 0; k < B; ++k) w[k] = 0u;
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        pack_chunk<B>(w, q, chunks[chunk_slot(t * 8 + q)]);
+#pragma unroll
+      for (int k = 0; k < B; ++k) words[word_slot(t * B + k)] = w[k];
+    }
+    __syncthreads();
+    // gt * B words from word g0 * B on (16-byte aligned: g0 is a multiple
+    // of kTileGroups, a multiple of 4).  The next tile writes `chunks`
+    // only after this tile's reads of it (the barrier above) and `words`
+    // only after its own first barrier.
+    const int nw = gt * B;
+    uint4* dst = out + g0 * B / 4;
+    for (int c = t; c < nw / 4; c += kTileThreads) {
+      const int w0 = 4 * c;
+      dst[c] = make_uint4(words[word_slot(w0)], words[word_slot(w0 + 1)],
+                          words[word_slot(w0 + 2)],
+                          words[word_slot(w0 + 3)]);
+    }
+    if (t < nw % 4) {
+      const int w = nw / 4 * 4 + t;
+      reinterpret_cast<unsigned*>(dst)[w] = words[word_slot(w)];
+    }
   }
 }
 
 template <int B>
-static void launch(const int* idx, unsigned* out, long long groups,
-                   cudaStream_t stream) {
-  constexpr int kThreads = 128;
-  pack_bits_kernel<B><<<repro_grid(groups, kThreads, 132LL * 64), kThreads,
-                        0, stream>>>(idx, out, groups);
+void launch(const int* idx, unsigned* out, long long groups,
+            cudaStream_t stream) {
+  const long long tiles = (groups + kTileGroups - 1) / kTileGroups;
+  pack_bits_kernel<B><<<repro_grid(tiles, 1, 132LL * 16), kTileThreads, 0,
+                        stream>>>(reinterpret_cast<const int4*>(idx),
+                                  reinterpret_cast<uint4*>(out), groups);
 }
 
+}  // namespace
+
 // `n` must be a multiple of 32 and `idx` 16-byte aligned (the wrapper
-// checks both); `out` receives n / 32 * b_bits words.
+// checks both); `out` (16-byte aligned) receives n / 32 * b_bits words.
 REPRO_EXPORT int pack_bits_i32(const void* idx, long long n, void* out,
                                int b_bits, void* stream) {
-  if (n <= 0 || n % 32 != 0) return cudaErrorInvalidValue;
+  if (n <= 0 || n % 32 != 0 || reinterpret_cast<uintptr_t>(idx) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return cudaErrorInvalidValue;
   const int* in = static_cast<const int*>(idx);
   unsigned* words = static_cast<unsigned*>(out);
   const long long groups = n / 32;

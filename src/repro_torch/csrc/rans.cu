@@ -48,6 +48,7 @@
 //           back so that the host check is the reference's _check_decoded.
 #include <cstdint>
 
+#include "bitgroup.cuh"
 #include "common.cuh"
 
 namespace {
@@ -434,27 +435,112 @@ cudaError_t launch_decode(unsigned nb, int L, cudaStream_t s,
                                           out, n, n_sym, marker, x1, p1);
 }
 
-// Element i of row b is bits [j*B, j*B + B) of word group i / 32 of the
-// row's little-endian words, j = i % 32 (core/packing.py's layout).
-__global__ void rans_unpack_kernel(const unsigned char* __restrict__ byts,
-                                   long long row, int B, long long be,
-                                   long long total, int* __restrict__ out) {
-  const unsigned mask = (1u << B) - 1u;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < total; i += stride) {
-    const long long b = i / be;
-    const long long e = i - b * be;
-    const unsigned* words =
-        reinterpret_cast<const unsigned*>(byts + b * row) + (e >> 5) * B;
-    const int bit0 = static_cast<int>(e & 31) * B;
-    const int w = bit0 >> 5;
-    const int s = bit0 & 31;
-    unsigned v = __ldg(words + w) >> s;
-    if (s + B > 32) v |= __ldg(words + w + 1) << (32 - s);
-    out[i] = static_cast<int>(v & mask);
+// ------------------------------------------------------------- unpack
+
+// Replaces: src/repro/kernels/rans.py unpack_words (:650, jnp), the
+// inverse of the bit-pack kernel: rows of packed B-bit words -> (nb, be)
+// int32 indices (element i of a row is bits [j*B, j*B + B) of word group
+// i / 32, j = i % 32; core/packing.py's layout).
+//
+// Bound on the H100: bytes (B/8 bytes read and 4 written an element, a
+// few integer operations).  One thread an element, with B a runtime
+// argument, spent more instructions than bytes: a 64-bit division by the
+// row length, one or two dependent 4-byte loads with runtime shifts and
+// a branch an element (34 % of the bound at the CMIP step, PERF.md).
+// Here the grid is (tile within the row, row), so no thread divides; B is
+// a template parameter (1..24, the bit-pack kernel's dispatch), so every
+// shift and spill test is a constant; and a CTA streams each tile of
+// kTileGroups groups through shared memory (bitgroup.cuh).  The tile's
+// packed words come in as 16-byte loads where the address allows them
+// (rows are only 4-byte aligned) and 4-byte loads for the 0-3 words on
+// either side; each thread unpacks its group from the padded word layout
+// in registers and leaves its 32 indices as swizzled 16-byte chunks; the
+// tile's indices go out as 16-byte stores, four consecutive elements a
+// thread and 512 contiguous bytes a warp.
+template <int B>
+__global__ void __launch_bounds__(kTileThreads)
+    rans_unpack_kernel(const unsigned char* __restrict__ byts, long long row,
+                       int nb, long long groups, int4* __restrict__ out) {
+  constexpr int kLoads = (kTileGroups * B / 4 + kTileThreads - 1) /
+                         kTileThreads;
+  __shared__ unsigned words[tile_word_slots<B>()];
+  __shared__ int4 chunks[kTileGroups * 8];
+  const int t = threadIdx.x;
+  for (int b = blockIdx.y; b < nb; b += gridDim.y) {
+    const unsigned* row_words =
+        reinterpret_cast<const unsigned*>(byts + b * row);
+    int4* row_out = out + b * groups * 8;
+    for (long long g0 = static_cast<long long>(blockIdx.x) * kTileGroups;
+         g0 < groups; g0 += static_cast<long long>(gridDim.x) * kTileGroups) {
+      const int gt = static_cast<int>(
+          groups - g0 < kTileGroups ? groups - g0 : kTileGroups);
+      const unsigned* src = row_words + g0 * B;
+      const int nw = gt * B;
+      // 0-3 head words up to the first 16-byte boundary, nv 16-byte
+      // chunks, 0-3 tail words; every load in flight before the first
+      // shared store.
+      const int head = min(
+          nw, static_cast<int>((16 - (reinterpret_cast<uintptr_t>(src) & 15))
+                               & 15) / 4);
+      const int nv = (nw - head) / 4;
+      const int tail = nw - head - 4 * nv;
+      const uint4* body = reinterpret_cast<const uint4*>(src + head);
+      uint4 v[kLoads];
+#pragma unroll
+      for (int i = 0; i < kLoads; ++i) {
+        const int c = i * kTileThreads + t;
+        if (c < nv) v[i] = __ldg(body + c);
+      }
+      unsigned edge = 0u;
+      const int e = t < head ? t : head + 4 * nv + (t - head);
+      if (t < head + tail) edge = __ldg(src + e);
+#pragma unroll
+      for (int i = 0; i < kLoads; ++i) {
+        const int c = i * kTileThreads + t;
+        if (c < nv) {
+          const int w0 = head + 4 * c;
+          words[word_slot(w0)] = v[i].x;
+          words[word_slot(w0 + 1)] = v[i].y;
+          words[word_slot(w0 + 2)] = v[i].z;
+          words[word_slot(w0 + 3)] = v[i].w;
+        }
+      }
+      if (t < head + tail) words[word_slot(e)] = edge;
+      __syncthreads();
+      if (t < gt) {
+        unsigned w[B];
+#pragma unroll
+        for (int k = 0; k < B; ++k) w[k] = words[word_slot(t * B + k)];
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          chunks[chunk_slot(t * 8 + q)] = make_int4(
+              group_index<B>(w, 4 * q), group_index<B>(w, 4 * q + 1),
+              group_index<B>(w, 4 * q + 2), group_index<B>(w, 4 * q + 3));
+      }
+      __syncthreads();
+      // The next tile writes `words` only after this tile's reads of it
+      // (the barrier above) and `chunks` only after its own first barrier.
+      int4* dst = row_out + g0 * 8;
+      for (int c = t; c < gt * 8; c += kTileThreads)
+        dst[c] = chunks[chunk_slot(c)];
+    }
   }
+}
+
+template <int B>
+void launch_unpack(const unsigned char* byts, long long row, int nb,
+                   long long groups, int* out, cudaStream_t s) {
+  // Tiles of a row on x and rows on y, about 16 CTAs an SM in all (as
+  // the bit-pack kernel); each CTA loops over the tiles and rows its
+  // index does not cover.
+  constexpr long long kCtas = 132LL * 16;
+  const unsigned rows = nb < 65535 ? nb : 65535;
+  const long long tiles = (groups + kTileGroups - 1) / kTileGroups;
+  const long long per_row = (kCtas + rows - 1) / rows;
+  const dim3 grid(static_cast<unsigned>(tiles < per_row ? tiles : per_row),
+                  rows);
+  rans_unpack_kernel<B><<<grid, kTileThreads, 0, s>>>(
+      byts, row, nb, groups, reinterpret_cast<int4*>(out));
 }
 
 bool lanes_ok(int L) { return L == 32 || L == 128 || L == 512 || L == 1024; }
@@ -552,18 +638,33 @@ REPRO_EXPORT int rans_decode(const void* dec, const void* sym_tab,
   return static_cast<int>(e);
 }
 
-// byts: (nb, row) packed bytes, 4-byte aligned rows; out (nb, be) int32.
+// byts: (nb, row) packed bytes, 4-byte aligned rows; out (nb, be) int32,
+// 16-byte aligned.
 REPRO_EXPORT int rans_unpack(const void* byts, int nb, long long row, int B,
                              long long be, void* out, void* stream) {
   if (nb <= 0 || be <= 0 || be % 32 != 0 || row % 4 != 0 || B < 1 || B > 24 ||
-      row * 8 < be * B)
+      row * 8 < be * B || reinterpret_cast<uintptr_t>(byts) % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return cudaErrorInvalidValue;
-  const long long total = static_cast<long long>(nb) * be;
-  constexpr int kThreads = 256;
-  rans_unpack_kernel<<<repro_grid(total, kThreads, 132LL * 16), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned char*>(byts), row, B, be, total,
-      static_cast<int*>(out));
+  const unsigned char* in = static_cast<const unsigned char*>(byts);
+  int* idx = static_cast<int*>(out);
+  const long long groups = be / 32;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (B) {
+#define REPRO_UNPACK_CASE(B) \
+  case B:                    \
+    launch_unpack<B>(in, row, nb, groups, idx, s); \
+    break;
+    REPRO_UNPACK_CASE(1) REPRO_UNPACK_CASE(2) REPRO_UNPACK_CASE(3)
+    REPRO_UNPACK_CASE(4) REPRO_UNPACK_CASE(5) REPRO_UNPACK_CASE(6)
+    REPRO_UNPACK_CASE(7) REPRO_UNPACK_CASE(8) REPRO_UNPACK_CASE(9)
+    REPRO_UNPACK_CASE(10) REPRO_UNPACK_CASE(11) REPRO_UNPACK_CASE(12)
+    REPRO_UNPACK_CASE(13) REPRO_UNPACK_CASE(14) REPRO_UNPACK_CASE(15)
+    REPRO_UNPACK_CASE(16) REPRO_UNPACK_CASE(17) REPRO_UNPACK_CASE(18)
+    REPRO_UNPACK_CASE(19) REPRO_UNPACK_CASE(20) REPRO_UNPACK_CASE(21)
+    REPRO_UNPACK_CASE(22) REPRO_UNPACK_CASE(23) REPRO_UNPACK_CASE(24)
+#undef REPRO_UNPACK_CASE
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,6 +30,9 @@ RANS_SIZES = {32: 4096, 128: 16384, 512: 131072, 1024: 1 << 20}
 # 2^B symbols (64: the fused table; 1,024: the slot->symbol table too),
 # v0 is the raw store fallback of near-random bytes.
 RANS_B = {"v0": 8, "v1": 4, "v2": 6, "v2wide": 10}
+# Word groups (32 indices) a CTA of the bit-pack and unpack kernels takes
+# as one tile (kTileGroups in src/repro_torch/csrc/bitgroup.cuh).
+TILE_GROUPS = 128
 
 
 @pytest.fixture
@@ -228,10 +231,15 @@ def test_cuda_histogram_plan_takes_each_route(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("groups", [1, TILE_GROUPS - 1, TILE_GROUPS + 1,
+                                    4099, 100_003])
 @pytest.mark.parametrize("b_bits", range(1, 25))
-def test_cuda_pack_matches_plain(cuda, b_bits):
-    rng = np.random.default_rng(b_bits)
-    idx = torch.from_numpy(rng.integers(0, 1 << b_bits, 32 * 4099)
+def test_cuda_pack_matches_plain(cuda, b_bits, groups):
+    """One word group, a tile short by one, a tile and one more (a ragged
+    second tile whose B words end off a 16-byte boundary for odd B), and
+    many tiles with a ragged last one."""
+    rng = np.random.default_rng(1000 * b_bits + groups)
+    idx = torch.from_numpy(rng.integers(0, 1 << b_bits, 32 * groups)
                            .astype(np.int32)).to(cuda)
     assert torch.equal(bitpack.pack_bits_cuda(idx, b_bits=b_bits),
                        bitpack.pack_bits_plain(idx, b_bits=b_bits))
@@ -333,15 +341,31 @@ def test_cuda_rans_decodes_ragged_anchor_bytes(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 4, 8, 12])
 @pytest.mark.parametrize("b_bits", range(1, 25))
-def test_cuda_rans_unpack_matches_plain(cuda, b_bits):
-    rng = np.random.default_rng(b_bits)
-    be = 32 * 1001
-    row = be * b_bits // 8 + 4 * (b_bits % 3)
-    byts = torch.from_numpy(rng.integers(0, 256, (3, row))
-                            .astype(np.uint8)).to(cuda)
-    got = rans.unpack_cuda(byts, b_bits=b_bits, be=be)
-    assert torch.equal(got, rans.unpack_plain(byts, b_bits=b_bits, be=be))
+def test_cuda_rans_unpack_matches_plain(cuda, b_bits, offset):
+    """1..16 rows (the grid's row axis) of 5 word groups (less than a
+    tile), of 2 tiles and 37 groups and of 1,001 groups (ragged last
+    tiles), the first row ``offset`` bytes past a 16-byte boundary and
+    each row 4 or 4 * (B % 3) bytes longer than its packed words, so that
+    rows start at every 4-byte offset mod 16: each row unpacks to its own
+    indices, as the plain version does."""
+    rng = np.random.default_rng(100 * b_bits + offset)
+    for be, pad in ((32 * 5, 4), (32 * (2 * TILE_GROUPS + 37), 4),
+                    (32 * 1001, 4 * (b_bits % 3))):
+        row = be * b_bits // 8 + pad
+        for nb in range(1, 17):
+            idx = rng.integers(0, 1 << b_bits, (nb, be)).astype(np.int32)
+            flat = rng.integers(0, 256, offset + nb * row).astype(np.uint8)
+            rows = flat[offset:].reshape(nb, row)
+            for r in range(nb):
+                rows[r, :row - pad] = packing.pack_indices_np(idx[r], b_bits)
+            byts = torch.from_numpy(flat).to(cuda)[offset:].view(nb, row)
+            assert byts.data_ptr() % 16 == offset
+            got = rans.unpack_cuda(byts, b_bits=b_bits, be=be)
+            assert torch.equal(got.cpu(), torch.from_numpy(idx)), (be, nb)
+            assert torch.equal(got, rans.unpack_plain(byts, b_bits=b_bits,
+                                                      be=be)), (be, nb)
 
 
 @pytest.mark.cuda

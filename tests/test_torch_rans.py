@@ -146,6 +146,24 @@ def test_plain_decode_matches_decode_scan_body(kind, L):
     np.testing.assert_array_equal(ptr.numpy(), n_emit)
 
 
+@pytest.mark.parametrize("b_bits", range(1, 25))
+def test_unpack_plain_matches_jax_unpack_words(b_bits):
+    """The plain unpack, which the unpack kernel is held to on the card,
+    against the reference's ``unpack_words`` at every B: 3 rows of 37
+    word groups (not a multiple of 4) from rows padded past be * B / 8
+    bytes."""
+    rng = np.random.default_rng(b_bits)
+    nb, be = 3, 32 * 37
+    nbytes = be * b_bits // 8
+    byts = rng.integers(0, 256, (nb, nbytes + 4 * (1 + b_bits % 3)),
+                        dtype=np.uint8)
+    words = byts[:, :nbytes].copy().view("<u4")
+    want = np.asarray(jrans.unpack_words(jnp.asarray(words), b_bits, be))
+    got = rans.unpack_plain(torch.from_numpy(byts), b_bits=b_bits, be=be)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("kind", ["v0", "v1", "v2", "v2wide"])
 def test_device_decode_route_matches_reference(kind):
     """``decode_blocks_device`` on CPU tensors (the plain versions)
