@@ -60,6 +60,7 @@ src/ beside it and a CUDA device, and exits non-zero without either.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -91,6 +92,10 @@ RANS_RUNS = {"cmip v1": ("cmip", dict(codec="rans")),
              "sedov v1": ("sedov", dict(codec="rans")),
              "sedov v2": ("sedov", dict(codec="rans", symbol_rans=True))}
 SCALE = 1                          # generate_series scale (1 = paper size)
+STRATEGIES = ("equal", "kmeans", "log")
+SHARDS = 4                         # ShardedCompressor shards on the one card
+SHARD_BLOCK_BYTES = 64 << 10       # block_elems(B) <= a CMIP shard at every B
+MP_STEPS = 3                       # CMIP steps of the two-rank save_series
 # CMIP steps cut to these element counts for the rANS route timing.
 ROUTE_SIZES = (1 << 15, 1 << 17, 1 << 19, 1 << 21)
 
@@ -263,10 +268,10 @@ def read_launches(steps) -> dict:
     return n
 
 
-def same_steps(np, interop, label, got, want) -> None:
+def same_steps(np, interop, label, got, want, skip=()) -> None:
     for i, (g, w) in enumerate(zip(got, want)):
         fg, fw = interop.step_to_fields(g), interop.step_to_fields(w)
-        for key in fg:
+        for key in set(fg) - set(skip):
             same = (np.array_equal(fg[key], fw[key])
                     if isinstance(fw[key], np.ndarray)
                     else fg[key] == fw[key])
@@ -478,6 +483,216 @@ def archive_phase(torch, np, dev, series: dict) -> dict:
                 f"device=cpu, max mean error {max(errs):.3e}, {n_win} "
                 "read_range windows exact, corrupt block raised")
     return launches
+
+
+def strategies_phase(torch, np, dev, data: dict, launches: dict) -> None:
+    """The equal-width, k-means and log-scale strategies through
+    compress_series on the card (CMIP and Sedov; equal also with the rANS
+    encode kernel): kernels 1-4 once per delta step, steps byte-identical
+    to device="cpu", every step decompressed within E."""
+    from repro_torch import compress_series, decompress_series, interop
+    from repro_torch.core.types import NumarckParams
+    from repro_torch.kernels import ops
+
+    runs = [(s, name, {}) for s in STRATEGIES for name in ("cmip", "sedov")]
+    runs.append(("equal", "cmip", {"codec": "rans"}))
+    for strategy, name, kw in runs:
+        arrays = data[name]
+        p = NumarckParams(error_bound=E, strategy=strategy, **kw)
+        label = f"{strategy} {name}" + (" rans" if kw else "")
+        t0 = time.perf_counter()
+        steps, got = counted(torch, ops.KERNELS, lambda: compress_series(
+            arrays, p, chain="device", device=dev))
+        first_s = time.perf_counter() - t0
+        check_counts(label, got, compress_launches(len(arrays), p))
+        launches[label] = got
+        t0 = time.perf_counter()
+        compress_series(arrays, p, chain="device", device=dev)
+        warm_s = time.perf_counter() - t0
+        same_steps(np, interop, label, steps, compress_series(
+            arrays, p, chain="device", device="cpu"))
+        errs = check_recon(np, label, arrays,
+                           decompress_series(steps, device=dev))
+        raw = sum(a.nbytes for a in arrays)
+        log(f"strategy {label}: launches {json.dumps(got)}, CR="
+            f"{raw / sum(s.nbytes for s in steps):.2f}, compress_series "
+            f"{warm_s * 1e3:.1f} ms warm ({first_s * 1e3:.1f} first call) "
+            f"for {len(steps)} steps, B={[s.b_bits for s in steps[1:]]}, "
+            f"max mean error {max(errs):.3e}, byte-identical to device=cpu")
+
+
+_MP_WORKER = """
+import json, os, sys, time
+import torch
+from repro_torch.data.temporal import generate_series
+from repro_torch.launch import distributed as ld
+from repro_torch.core.types import NumarckParams
+from repro_torch.distributed.pipeline import MultiProcessCompressor
+from repro_torch.kernels import ops
+ld.initialize()
+arrays = list(generate_series("cmip", {steps}, seed=0, scale={scale}))
+mp = MultiProcessCompressor(["cuda"], NumarckParams(error_bound={e}))
+torch.cuda.synchronize()
+for k in ops.KERNELS:
+    k.launches = 0
+t0 = time.perf_counter()
+mp.save_series(os.environ["MP_PATH"], arrays)
+torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+counts = {{k.name: k.launches for k in ops.KERNELS}}
+mp.close()
+ld.shutdown()
+print("MP_RESULT " + json.dumps({{"launches": counts, "wall_s": wall}}))
+"""
+
+
+def shard_launches(n_steps: int, params, shards: int) -> dict:
+    """Launches of a sharded compress run: each compress kernel once per
+    shard and delta step."""
+    return {k: v * shards
+            for k, v in compress_launches(n_steps, params).items()}
+
+
+def shard_read_launches(steps, shards: int) -> dict:
+    """Launches of ShardedDecompressor.decompress_series: the anchor as
+    ``read_launches`` counts it (one device); per delta step and shard one
+    dequantize, and on the device decode route each shard's run of blocks
+    counted as ``read_launches`` counts a step."""
+    from repro_torch.core import compress
+
+    n = dict(rans_decode=0, rans_unpack=0, dequant=0)
+    for s in steps:
+        if s.is_anchor:
+            for k, v in read_launches([s]).items():
+                n[k] += v
+            continue
+        if not compress.device_decode_route(s):
+            n["dequant"] += min(shards, s.n)
+            continue
+        nb = len(s.index_blocks)
+        per = -(-nb // shards)
+        for j in range(shards):
+            blobs = s.index_blocks[j * per:(j + 1) * per]
+            if not blobs:
+                continue
+            part = read_launches([dataclasses.replace(
+                s, index_blocks=blobs)])
+            for k, v in part.items():
+                n[k] += v
+    return n
+
+
+def sharded_phase(torch, np, dev, data: dict, launches: dict) -> None:
+    """ShardedCompressor over SHARDS shards on the one card (CMIP: zlib,
+    rans v1, fixed_domain), byte-identical to the same driver on the CPU
+    and, at SHARD_BLOCK_BYTES, to the single-device compress_series on
+    the card; ShardedDecompressor reads back bit-identically; a two-rank
+    MultiProcessCompressor.save_series over gloo on the same card merges
+    to the single-process sharded steps.  Exact per-shard launch counts."""
+    from repro_torch import NCKReader, NCKWriter, compress_series, interop
+    from repro_torch import decompress_series
+    from repro_torch.core.types import NumarckParams
+    from repro_torch.distributed.pipeline import (ShardedCompressor,
+                                                  ShardedDecompressor)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.distributed import check_spawned, spawn_emulated
+
+    K = ops.KERNELS
+    arrays = data["cmip"]
+    runs = {"zlib 1MB": {}, "zlib": {"block_bytes": SHARD_BLOCK_BYTES},
+            "rans v1": {"block_bytes": SHARD_BLOCK_BYTES, "codec": "rans"},
+            "fixed_domain": {"block_bytes": SHARD_BLOCK_BYTES,
+                             "fixed_domain": True}}
+    for label, kw in runs.items():
+        p = NumarckParams(error_bound=E, **kw)
+        sc = ShardedCompressor([dev] * SHARDS, p)
+        steps, got = counted(torch, K, lambda: sc.compress_series(arrays))
+        check_counts(f"sharded {label}", got,
+                     shard_launches(len(arrays), p, SHARDS))
+        launches[f"sharded {label}"] = got
+        t0 = time.perf_counter()
+        sc.compress_series(arrays)
+        torch.cuda.synchronize()
+        t_shard = time.perf_counter() - t0
+        sc.close()
+        cpu = ShardedCompressor(["cpu"] * SHARDS, p)
+        same_steps(np, interop, f"sharded {label}", steps,
+                   cpu.compress_series(arrays))
+        cpu.close()
+        compress_series(arrays, p, chain="device", device=dev)
+        t0 = time.perf_counter()
+        single = compress_series(arrays, p, chain="device", device=dev)
+        t_single = time.perf_counter() - t0
+        note = "blocks shrink to a shard" if label == "zlib 1MB" else (
+            "fixed_domain: the single-device driver ignores it"
+            if p.fixed_domain else "byte-identical to single-device")
+        if not (label == "zlib 1MB" or p.fixed_domain):
+            # meta names the pipeline, so it differs by design.
+            same_steps(np, interop, f"sharded {label} vs single", steps,
+                       single, skip=("meta",))
+        dec = ShardedDecompressor([dev] * SHARDS)
+        recon, got = counted(torch, K, lambda: dec.decompress_series(steps))
+        check_counts(f"sharded read {label}", got,
+                     shard_read_launches(steps, SHARDS))
+        launches[f"sharded read {label}"] = got
+        for i, (a, b) in enumerate(zip(recon, decompress_series(
+                steps, device="cpu"))):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"sharded read {label} step {i}: "
+                                     "differs from the cpu read")
+        errs = check_recon(np, f"sharded {label}", arrays, recon)
+        t0 = time.perf_counter()
+        dec.decompress_series(steps)
+        t_read = time.perf_counter() - t0
+        decompress_series(steps, device=dev)
+        t0 = time.perf_counter()
+        decompress_series(steps, device=dev)
+        t_read1 = time.perf_counter() - t0
+        log(f"sharded {label}: {SHARDS} shards, launches "
+            f"{json.dumps(launches[f'sharded {label}'])}, warm "
+            f"compress_series {t_shard * 1e3:.1f} ms against single-device "
+            f"{t_single * 1e3:.1f} ms, decompress_series {t_read * 1e3:.1f} "
+            f"ms against {t_read1 * 1e3:.1f} ms ({len(steps)} steps, block "
+            f"{steps[1].block_elems} elements; {note}), identical to the "
+            f"cpu shards, read back bit-identical, max mean error "
+            f"{max(errs):.3e}")
+
+    # Two ranks on the one card over gloo, against one process's two
+    # shards, through the files both write.
+    p = NumarckParams(error_bound=E)
+    sub = arrays[:MP_STEPS]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mp.nck")
+        env = dict(os.environ, MP_PATH=path, PYTHONPATH=str(SRC))
+        t0 = time.perf_counter()
+        res = spawn_emulated(2, ["-c", _MP_WORKER.format(
+            steps=MP_STEPS, scale=SCALE, e=E)], base_env=env, timeout=300)
+        spawn_s = time.perf_counter() - t0
+        check_spawned(res)
+        outs = [json.loads(r.stdout.split("MP_RESULT ")[1]) for r in res]
+        for rank, o in enumerate(outs):
+            check_counts(f"multi-process rank {rank}", o["launches"],
+                         compress_launches(MP_STEPS, p))
+            launches[f"multi-process rank {rank}"] = o["launches"]
+        sc = ShardedCompressor([dev] * 2, p)
+        want = sc.compress_series(sub)
+        sc.close()
+        w = NCKWriter()
+        for i, s in enumerate(want):
+            w.add_step(f"step{i:04d}", s)
+        w.write(os.path.join(tmp, "ref.nck"))
+        got_r, want_r = NCKReader(path), NCKReader(os.path.join(tmp,
+                                                                "ref.nck"))
+        if got_r.step_names() != want_r.step_names():
+            raise AssertionError("multi-process: step names differ")
+        same_steps(np, interop, "multi-process",
+                   [got_r.read_step(n) for n in got_r.step_names()],
+                   [want_r.read_step(n) for n in want_r.step_names()])
+    log(f"multi-process: 2 ranks (gloo) on one card, {MP_STEPS} CMIP steps, "
+        f"save_series {max(o['wall_s'] for o in outs) * 1e3:.1f} ms per "
+        f"rank, {spawn_s:.1f} s with process start, launches per rank "
+        f"{json.dumps(outs[0]['launches'])}; the NCKM merge equals the "
+        "single-process two-shard steps")
 
 
 def rans_inputs(torch, np, dev, prev, curr, params):
@@ -851,7 +1066,13 @@ def run(torch, np) -> dict:
     for label, got in read_counts.items():
         launches[f"read {label}"] = got
 
-    # -- 5. one warm step, stage by stage ----------------------------------
+    # -- 5. the equal-width, k-means and log-scale strategies -------------
+    strategies_phase(torch, np, dev, data, launches)
+
+    # -- 6. the sharded and multi-process drivers --------------------------
+    sharded_phase(torch, np, dev, data, launches)
+
+    # -- 7. one warm step, stage by stage ----------------------------------
     first, step_in = data["cmip"][0], data["cmip"][1]
     warm = {}
     for codec in ("zlib", "rans"):
@@ -895,7 +1116,7 @@ def run(torch, np) -> dict:
 
     route_times(torch, np, dev, data)
 
-    # -- 6. each kernel against its plain version, timed -------------------
+    # -- 8. each kernel against its plain version, timed -------------------
     log_clocks("before the kernel phase")
     prev_big, curr_big = big_pair(np, N_BIG)
     pairs = {"cmip": (data["cmip"][0].reshape(-1), data["cmip"][1].reshape(-1)),

@@ -1,31 +1,36 @@
-"""Single-device NUMARCK compress / decompress driver (top-k strategy).
+"""Single-device NUMARCK compress / decompress driver.
 
 The port's counterpart of the reference's ``core/compress.py``.  Device
 stages, on the compressor's device:
 
   1. `_analyze`     -- ratios and their global range, candidate-bin ids
-                       (change-ratio kernel), histogram (histogram
-                       kernel), stable descending sort, auto-B
-  2. `_encode_topk` -- rank LUT + per-element index assignment, exception
-                       compaction, bit-packing of the whole marker-padded
-                       table (bit-pack kernel)
+                       and ratios (change-ratio kernel), histogram
+                       (histogram kernel), stable descending sort, auto-B
+  2. indexing       -- `_encode_topk`: rank LUT + per-element index
+                       assignment (top-k), or `_encode_centers`: the
+                       nearest of the equal-width, log-scale or k-means
+                       centers (``binning``; the centers themselves are a
+                       host computation, as small as the histogram);
+                       then exception compaction and bit-packing of the
+                       whole marker-padded table (bit-pack kernel)
 
   3. device entropy (``codec="rans"``, payloads of at least
                        ``rans.DEVICE_MIN_BYTES``) -- the rANS encode
                        kernel codes the packed bytes (v1 blobs) or, with
-                       ``symbol_rans``, the indices themselves (v2)
+                       ``symbol_rans`` and top-k, the indices themselves
+                       (v2)
 
 then the shared host finalize of ``core.pipeline``.  The REF_RECONSTRUCTED
 chain advances through the fused chain-advance kernel when it is
 device-resident.  On ``device="cpu"`` every kernel call takes its plain
 PyTorch version; both give the reference's steps byte for byte.
+``NumarckParams.fixed_domain`` is ignored here, as by the reference's
+single-device driver; the sharded driver reads it.
 
 Decompression of rANS steps runs on the decompressor's device
 (``device_decode_route``): the rANS decode kernel, the dequantize kernel,
 then the exception patch, with the chain state kept there between steps.
-Other codecs take the host route, as in the reference.  The equal-width,
-log-scale and k-means strategies raise ``NotImplementedError`` until
-their slice (ROADMAP.md).
+Other codecs take the host route, as in the reference.
 """
 from __future__ import annotations
 
@@ -41,19 +46,13 @@ from repro_torch.core import chain as chainmod
 from repro_torch.core import pipeline as pipe
 from repro_torch.core.overlap import FinalizeQueue
 from repro_torch.core.pipeline import DeviceEncoded
-from repro_torch.core.types import (REF_RECONSTRUCTED, STRATEGY_TOPK,
+from repro_torch.core.types import (REF_RECONSTRUCTED, STRATEGY_EQUAL,
+                                    STRATEGY_LOG, STRATEGY_TOPK,
                                     CompressedStep, NumarckParams)
 from repro_torch.faults.errors import IntegrityError
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import rans
 from repro_torch.kernels.dequant import patch_exceptions
-
-
-def _require_topk(params: NumarckParams) -> None:
-    if params.strategy != STRATEGY_TOPK:
-        raise NotImplementedError(
-            f"strategy {params.strategy!r} is not ported yet: only top-k "
-            "is (ROADMAP.md, Queue 1 item 7)")
 
 
 def _to_device(x, device: torch.device) -> torch.Tensor:
@@ -69,21 +68,24 @@ def _analyze(prev: torch.Tensor, curr: torch.Tensor, params: NumarckParams,
     The range pass is plain PyTorch (the reference's ``ratio_range``);
     the change-ratio kernel then recomputes the ratios with the domain in
     hand, as the reference's sharded analyze does.  The range also bounds
-    the ids, which sizes the histogram kernel's table.
+    the ids, which sizes the histogram kernel's table.  The kernel's
+    ratios and the range pass's validity mask are kept for the strategies
+    that assign the nearest center.
     """
     r, valid = ratios.change_ratios(prev, curr)
     lo, hi = ratios.ratio_range(r, valid)
-    del r, valid
+    del r
     domain_lo, width, bound = ratios.histogram_domain(
         lo, hi, params.error_bound, params.max_bins)
-    _, bin_ids = kops.change_ratio_bins(prev, curr, domain_lo, width,
+    r, bin_ids = kops.change_ratio_bins(prev, curr, domain_lo, width,
                                         max_bins=params.max_bins)
     counts = kops.histogram(bin_ids, max_bins=params.max_bins,
                             id_bound=bound)
     counts_desc, ids_desc = binning.sort_histogram(counts)
     b_auto, est_sizes = select_b.choose_b(counts_desc, curr.numel(),
                                           elem_bytes, params.b_max)
-    return dict(bin_ids=bin_ids, counts_desc=counts_desc, ids_desc=ids_desc,
+    return dict(ratios=r, valid=valid, bin_ids=bin_ids, counts=counts,
+                counts_desc=counts_desc, ids_desc=ids_desc,
                 domain_lo=domain_lo, width=width, b_auto=b_auto,
                 est_sizes=est_sizes, lo=lo, hi=hi)
 
@@ -95,6 +97,29 @@ def _encode_topk(bin_ids, ids_desc, b_bits: int, k_eff: int, max_bins: int):
     ranks = lut[bin_ids.clamp(0, max_bins - 1).to(torch.int64)]
     ranks = torch.where(ranks >= k_eff, marker, ranks)
     return torch.where(bin_ids >= 0, ranks, marker).to(torch.int32)
+
+
+def _strategy_centers(a: dict, params: NumarckParams, k: int) -> np.ndarray:
+    """Sorted float32 centers of the equal-width, log-scale or k-means
+    strategy (``params.strategy``, not top-k) for one step, on the host
+    (``binning``)."""
+    if params.strategy == STRATEGY_EQUAL:
+        cs = binning.equal_width_centers(a["lo"], a["hi"], k)
+    elif params.strategy == STRATEGY_LOG:
+        cs = binning.log_scale_centers(
+            *binning.log_range(a["ratios"], a["valid"]), k)
+    else:
+        cs = binning.kmeans_centers(a["counts"].cpu().numpy(), a["domain_lo"],
+                                    a["width"], min(k, params.kmeans_max_k),
+                                    params.kmeans_iters)
+    return np.sort(cs)
+
+
+def _encode_centers(r, valid, centers_sorted, error_bound, b_bits: int):
+    marker = (1 << b_bits) - 1
+    idx = binning.assign_nearest(r, valid, centers_sorted, error_bound)
+    return torch.where(idx >= centers_sorted.numel(), marker, idx).to(
+        torch.int32)
 
 
 def _pad_blocks(idx: torch.Tensor, b_bits: int,
@@ -162,7 +187,7 @@ def device_decode_route(step: CompressedStep) -> bool:
 
 def encode_device(prev, curr, params: NumarckParams,
                   need_host_idx: bool = True, device=None) -> DeviceEncoded:
-    """Device stages for one step: analyze + top-k indexing + packing.
+    """Device stages for one step: analyze + strategy indexing + packing.
 
     `prev`/`curr` may be host ndarrays or tensors (a device-resident chain
     feeds its state straight back in).  Tensors run on their own device;
@@ -170,7 +195,6 @@ def encode_device(prev, curr, params: NumarckParams,
     another).  ``need_host_idx=False`` skips the host copy of the index
     table, which only a host-resident chain reads.
     """
-    _require_topk(params)
     if isinstance(curr, torch.Tensor):
         dev = curr.device
     elif isinstance(prev, torch.Tensor):
@@ -185,13 +209,24 @@ def encode_device(prev, curr, params: NumarckParams,
     n = curr_t.numel()
     a = _analyze(prev_t.reshape(-1), curr_t.reshape(-1), params,
                  dtype.itemsize)
-    b_bits = int(params.b_bits if params.b_bits is not None
-                 else a["b_auto"])
-    k_eff = min((1 << b_bits) - 1, params.max_bins)
-    idx = _encode_topk(a["bin_ids"], a["ids_desc"], b_bits, k_eff,
-                       params.max_bins)
-    centers = pipe.topk_centers(a["ids_desc"][:k_eff].cpu().numpy(), k_eff,
-                                float(a["domain_lo"]), float(a["width"]))
+    if params.strategy == STRATEGY_TOPK:
+        b_bits = int(params.b_bits if params.b_bits is not None
+                     else a["b_auto"])
+        k_eff = min((1 << b_bits) - 1, params.max_bins)
+        idx = _encode_topk(a["bin_ids"], a["ids_desc"], b_bits, k_eff,
+                           params.max_bins)
+        centers = pipe.topk_centers(a["ids_desc"][:k_eff].cpu().numpy(),
+                                    k_eff, float(a["domain_lo"]),
+                                    float(a["width"]))
+    else:
+        b_bits = int(params.b_bits if params.b_bits is not None else 8)
+        k_eff = (1 << b_bits) - 1
+        cs = _strategy_centers(a, params, k_eff)
+        idx = _encode_centers(a["ratios"], a["valid"],
+                              torch.from_numpy(cs).to(dev),
+                              params.error_bound, b_bits)
+        centers = cs.astype(np.float64)
+    del a["ratios"], a["valid"]         # free before packing
     centers = pipe.round_centers(centers, dtype)
     be = params.block_elems(b_bits)
     marker = (1 << b_bits) - 1
@@ -373,7 +408,6 @@ class TemporalCompressor:
                  device=None):
         if chain not in chainmod.RESIDENCIES:
             raise ValueError(f"unknown chain residency {chain!r}")
-        _require_topk(params)
         self.params = params
         self.overlap = overlap
         self.chain = chain

@@ -58,7 +58,8 @@ generation under ``previous``).  This module holds the whole read side:
 file, merges fragments back into `CompressedStep`s identical to a
 single-process write, and falls back to the ``previous`` generation when
 the newest one fails verification (``recovered_generation``).  The write
-side of the manifest waits for the port's sharded slice.
+side is here too: `ShardNCKWriter` publishes one rank's fragments and
+`write_manifest` is rank 0's self-healing commit of the manifest.
 
 Every publish goes through `atomic_commit`: content is fsynced *before*
 the rename makes it visible.  This module is the port's copy of the
@@ -66,9 +67,11 @@ reference's ``core/container.py``; the files it writes are byte-identical.
 """
 from __future__ import annotations
 
+import glob
 import json
 import os
 import struct
+import time
 import zlib
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional, Sequence, Union
@@ -77,8 +80,9 @@ import numpy as np
 
 from repro_torch.core.types import CompressedStep
 from repro_torch.faults import inject
-from repro_torch.faults.errors import (CorruptBlockError, CorruptShardError,
-                                       IntegrityError)
+from repro_torch.faults.errors import (CommitTimeoutError, CorruptBlockError,
+                                       CorruptShardError, IntegrityError)
+from repro_torch.faults.retry import Backoff
 from repro_torch.kernels import rans
 
 _MAGIC_V1 = b"NCK1"
@@ -350,6 +354,223 @@ def read_manifest(path: str) -> Optional[dict]:
             f"{path}: schema {m['schema']} manifest is missing its checksum "
             "trailer (truncated)")
     return m
+
+
+def rank_file_path(path: str, generation: int, rank: int) -> str:
+    """Per-rank NCK shard file name: ``<path>.g<gen>.rank<k>``.  The
+    generation suffix keeps a crashed save's partial output disjoint from
+    every published generation -- a mixed-generation file set can never
+    be referenced by one manifest."""
+    return f"{path}.g{generation:04d}.rank{rank}"
+
+
+def _manifest_bytes(payload: dict) -> bytes:
+    """Serialize a manifest payload with its u32 crc32 trailer (schema 2:
+    the digest covers magic + length + JSON, so any flip in the committed
+    manifest -- even inside the length field -- fails verification)."""
+    body = json.dumps(payload).encode()
+    head = _MANIFEST_MAGIC + struct.pack("<Q", len(body)) + body
+    return head + struct.pack("<I", zlib.crc32(head))
+
+
+def next_generation(path: str) -> int:
+    """Generation for the next multi-process save at `path` (0 when no
+    manifest exists yet).  Every rank derives this from the same on-disk
+    state before any rank writes, so the fleet agrees without a
+    collective."""
+    m = read_manifest(path)
+    return int(m["generation"]) + 1 if m else 0
+
+
+def _gc_stale_generations(path: str, keep: Iterable[int]) -> None:
+    """Drop rank files of unreferenced generations after a successful
+    publish.  ``keep`` is the set of generations the just-committed
+    manifest can reach: the current one plus the embedded ``previous``
+    (the rollback target must stay loadable)."""
+    keep_set = {int(k) for k in keep}
+    prefix = path + ".g"
+    for f in glob.glob(glob.escape(path) + ".g*.rank*"):
+        try:
+            gen = int(f[len(prefix):].split(".rank")[0])
+        except ValueError:
+            continue
+        if gen not in keep_set:
+            try:
+                os.remove(f)
+            except OSError:
+                pass
+
+
+def _quarantine(path: str) -> str:
+    """Move a corrupt rank file aside as ``<path>.quarantine`` so a
+    healthy re-publish of the same name can land while the evidence is
+    preserved for postmortem."""
+    q = path + ".quarantine"
+    i = 0
+    while os.path.exists(q):
+        i += 1
+        q = f"{path}.quarantine{i}"
+    # Not a durable publish: the corrupt bytes are LEAVING the committed
+    # namespace, and fsyncing known-garbage buys nothing.
+    os.replace(path, q)
+    return q
+
+
+def write_manifest(path: str, generation: int, num_ranks: int,
+                   steps: List[str], *, timeout: float = 60.0,
+                   poll: float = 0.05) -> str:
+    """Rank 0's self-healing commit: poll (bounded jittered backoff, hard
+    deadline) until every rank file of this generation is published AND
+    verifies -- structure, header crc, per-variable digests.  A published
+    file that fails verification is quarantined aside and treated as
+    not-yet-complete (the writing rank may still re-publish).  Only then
+    is the schema-2 manifest (rank sizes + crcs + previous generation)
+    atomically committed, and stale generations GC'd -- keeping the
+    previous generation as the rollback target.
+
+    On deadline, raises :class:`CommitTimeoutError` BEFORE the manifest
+    is touched: its ``report`` names the missing ranks, the quarantined
+    files and the generation the logical file remains at.  The previous
+    manifest and its rank files stay intact byte for byte.
+    """
+    files = [rank_file_path(path, generation, r) for r in range(num_ranks)]
+    previous = read_manifest(path)  # last durable generation (may be None)
+    deadline = time.monotonic() + timeout
+    backoff = Backoff(base=poll, factor=1.6, cap=max(poll * 8, 0.25),
+                      jitter=0.25).repolling()
+    quarantined: List[dict] = []
+    crcs: Dict[int, int] = {}
+
+    def scan() -> List[int]:
+        missing = []
+        for r, f in enumerate(files):
+            if r in crcs:
+                continue
+            if not os.path.exists(f):
+                missing.append(r)
+                continue
+            try:
+                verify_nck(f)
+                crcs[r] = _file_crc32(f)
+            except IntegrityError as e:
+                q = _quarantine(f)
+                quarantined.append({
+                    "rank": r, "file": os.path.basename(f),
+                    "quarantined_as": os.path.basename(q),
+                    "error": str(e)})
+                missing.append(r)  # checksum mismatch == not yet complete
+        return missing
+
+    missing = scan()
+    for delay in backoff.sleep_until(deadline):
+        if not missing:
+            break
+        time.sleep(delay)
+        missing = scan()
+    if missing:
+        prev_gen = int(previous["generation"]) if previous else None
+        report = {
+            "path": path, "generation": int(generation),
+            "missing_ranks": sorted(missing),
+            "quarantined": [q["quarantined_as"] for q in quarantined],
+            "quarantine_detail": quarantined,
+            "rolled_back_to": prev_gen,
+        }
+        names = ", ".join(os.path.basename(files[r]) for r in sorted(missing))
+        rollback = (f"rolled back to durable generation {prev_gen}"
+                    if prev_gen is not None
+                    else "no previous durable generation exists")
+        raise CommitTimeoutError(
+            f"manifest commit for {path}: rank file(s) {names} missing or "
+            f"quarantined after {timeout:.0f}s; previous manifest left "
+            f"intact ({rollback})", report)
+    entries = [{"rank": r, "file": os.path.basename(f),
+                "nbytes": os.path.getsize(f), _CRC_KEY: crcs[r]}
+               for r, f in enumerate(files)]
+    payload = {"schema": _MANIFEST_SCHEMA, "generation": int(generation),
+               "num_ranks": int(num_ranks), "ranks": entries,
+               "steps": list(steps)}
+    keep = {int(generation)}
+    if previous is not None:
+        # Embed the rollback target (one level deep: its own `previous`
+        # is dropped, bounding manifest growth at two generations).
+        payload["previous"] = {k: v for k, v in previous.items()
+                               if k != "previous"}
+        keep.add(int(previous["generation"]))
+    atomic_commit(path, _manifest_bytes(payload))
+    _gc_stale_generations(path, keep)
+    return path
+
+
+class ShardNCKWriter:
+    """Per-process shard file writer: collects this rank's StepFragments
+    and publishes them as one normal NCK file (same magic matrix, same
+    atomic_commit discipline).  Rank 0 additionally commits the manifest
+    via `commit_manifest` once every rank's file is visible."""
+
+    def __init__(self, path: str, rank: int, num_ranks: int,
+                 generation: Optional[int] = None, *,
+                 checksums: bool = True):
+        self.path = path
+        self.rank = rank
+        self.num_ranks = num_ranks
+        self.generation = (next_generation(path) if generation is None
+                           else generation)
+        self._w = NCKWriter(checksums=checksums)
+        self.steps: List[str] = []
+
+    @property
+    def rank_path(self) -> str:
+        return rank_file_path(self.path, self.generation, self.rank)
+
+    def add_fragment(self, name: str, frag: StepFragment):
+        info = dict(frag.info)
+        info["block_start"] = int(frag.block_start)
+        info["frag_blocks"] = len(frag.index_blocks)
+        info["frag_rank"] = self.rank
+        if frag.block_codecs is not None:
+            info["block_codecs"] = [str(c) for c in frag.block_codecs]
+            self._w.bump_format(2)
+        if _blobs_have_symbol_rans(frag.index_blocks,
+                                   info.get("codec", "zlib"),
+                                   frag.block_codecs):
+            self._w.bump_format(3)
+        sizes = np.array([len(b) for b in frag.index_blocks], np.int64)
+        offs = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+        counts = None
+        if not frag.is_anchor:
+            counts = (frag.incomp_block_counts
+                      if frag.incomp_block_counts is not None
+                      else np.zeros(len(frag.index_blocks), np.int64))
+            info["frag_n_incompressible"] = int(np.sum(counts))
+        self._w.add_array(f"{name}_frag_info", np.zeros(1, np.int32),
+                          attrs=info)
+        self._w.add_array(f"{name}_frag_index_table_offset", offs)
+        self._w.add_bytes(f"{name}_frag_index_table",
+                          b"".join(frag.index_blocks),
+                          block_crcs=self._w._block_crcs(frag.index_blocks))
+        if not frag.is_anchor:
+            self._w.add_array(f"{name}_frag_incompressible_counts",
+                              np.asarray(counts, np.int64))
+            values = (frag.incomp_values if frag.incomp_values is not None
+                      else np.zeros(0, info.get("dtype", "float32")))
+            self._w.add_array(f"{name}_frag_incompressible_table", values)
+            if frag.centers is not None:
+                self._w.add_array(f"{name}_bin_centers",
+                                  frag.centers.astype(info["dtype"]))
+        self.steps.append(name)
+
+    def write(self) -> str:
+        """Atomically publish this rank's shard file; returns its path."""
+        self._w.write(self.rank_path)
+        return self.rank_path
+
+    def commit_manifest(self, *, timeout: float = 60.0) -> str:
+        """Rank 0 only: publish the manifest once all rank files exist."""
+        if self.rank != 0:
+            raise ValueError("only rank 0 commits the manifest")
+        return write_manifest(self.path, self.generation, self.num_ranks,
+                              self.steps, timeout=timeout)
 
 
 class NCKReader:
@@ -699,5 +920,6 @@ def verify_nck(path: str) -> None:
                                         actual)
 
 
-__all__ = ["NCKWriter", "NCKReader", "StepFragment", "atomic_commit",
-           "read_manifest", "verify_nck"]
+__all__ = ["NCKWriter", "NCKReader", "StepFragment", "ShardNCKWriter",
+           "atomic_commit", "rank_file_path", "next_generation",
+           "read_manifest", "write_manifest", "verify_nck"]

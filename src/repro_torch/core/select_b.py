@@ -8,21 +8,46 @@ its device: the model is a 65,536-entry prefix sum and a few dozen flops.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+_CHUNK = 16
+
+
+def cumsum_f32(x: np.ndarray) -> np.ndarray:
+    """Inclusive float32 prefix sum in XLA CPU's order, bit for bit.
+
+    XLA CPU lowers ``jnp.cumsum`` to a ``reduce_window`` that it computes
+    as a chunked scan with base 16: pad to a multiple of 16, take a
+    sequential float32 prefix inside each chunk of 16, take the same scan
+    recursively over the chunk totals, and add each chunk's exclusive
+    carry in float32.  Every prefix is exact while the total is below
+    2^24; above it the rounding follows this order, which a sequential or
+    an int64 sum does not reproduce.
+    """
+    x = np.asarray(x, np.float32).reshape(-1)
+    n = x.size
+    if n <= _CHUNK:
+        return np.cumsum(x, dtype=np.float32)
+    chunks = np.zeros(-(-n // _CHUNK) * _CHUNK, np.float32)
+    chunks[:n] = x
+    chunks = np.cumsum(chunks.reshape(-1, _CHUNK), axis=1, dtype=np.float32)
+    carry = np.zeros(chunks.shape[0], np.float32)
+    carry[1:] = cumsum_f32(chunks[:-1, -1])
+    return (chunks + carry[:, None]).reshape(-1)[:n]
 
 
 def estimated_file_sizes(counts_desc: torch.Tensor, n: int, elem_bytes: int,
                          b_max: int) -> torch.Tensor:
     """Eq. (6) for B in [1, b_max].  Returns float32 (b_max,) byte sizes.
 
-    The prefix of the counts is summed in int64 and rounded to float32
-    once.  The reference takes a float32 cumsum, whose every prefix is
-    exact while n < 2^24, so the two agree exactly there; above 2^24 the
-    reference's own value depends on its backend's summation order.
+    The prefix of the counts is the reference's float32 cumsum, summed in
+    XLA CPU's order (``cumsum_f32``), so the sizes agree bit for bit above
+    2^24 elements too.
     """
     counts_desc = counts_desc.cpu()
     m = counts_desc.shape[0]
-    cum = torch.cumsum(counts_desc.to(torch.int64), 0).to(torch.float32)
+    cum = torch.from_numpy(cumsum_f32(counts_desc.numpy()))
     bs = torch.arange(1, b_max + 1, dtype=torch.float32)
     pow2 = torch.exp2(bs)
     ks = torch.minimum(pow2 - 1.0, torch.tensor(float(m))).to(torch.int32)
@@ -42,4 +67,4 @@ def choose_b(counts_desc: torch.Tensor, n: int, elem_bytes: int, b_max: int):
     return int(torch.argmin(sizes)) + 1, sizes
 
 
-__all__ = ["estimated_file_sizes", "choose_b"]
+__all__ = ["cumsum_f32", "estimated_file_sizes", "choose_b"]

@@ -558,3 +558,86 @@ def test_cuda_rans_divide_matches_floor_division(cuda):
           for a in (x, ff)))
     np.testing.assert_array_equal(q.cpu().numpy().view(np.uint32), x // ff)
     np.testing.assert_array_equal(r.cpu().numpy().view(np.uint32), x % ff)
+
+
+# --------------------------------------------------------------------------
+# The equal-width, log-scale and k-means strategies and the sharded driver.
+# --------------------------------------------------------------------------
+
+def _same_steps(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        fg, fw = interop.step_to_fields(g), interop.step_to_fields(w)
+        for k, v in fw.items():
+            if isinstance(v, np.ndarray):
+                np.testing.assert_array_equal(fg[k], v, err_msg=k)
+            else:
+                assert fg[k] == v, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["equal", "log", "kmeans"])
+@pytest.mark.parametrize("name,steps,scale", [("stir", 4, 4), ("sedov", 3, 2)])
+def test_cuda_strategy_series_matches_cpu(cuda, name, steps, scale,
+                                          strategy):
+    """Each strategy through compress_series on the card: steps equal to
+    device="cpu", kernels 1-4 once per delta step."""
+    arrays = list(generate_series(name, steps, seed=0, scale=scale))
+    params = repro_torch.NumarckParams(strategy=strategy)
+    for k in ops.KERNELS:
+        k.launches = 0
+    got = repro_torch.compress_series(arrays, params, device=cuda)
+    for k in (change_ratio.KERNEL, hist.KERNEL, bitpack.KERNEL,
+              dequant.KERNEL):
+        assert k.launches == steps - 1, k.name
+    _same_steps(got, repro_torch.compress_series(arrays, params,
+                                                 device="cpu"))
+
+
+@pytest.mark.cuda
+def test_cuda_assign_nearest_and_log_range_match_cpu(cuda):
+    """The element-wise strategy stages on the card, NaN and invalid
+    ratios included: exact."""
+    from repro_torch.core import binning
+
+    rng = np.random.default_rng(0)
+    r = (rng.standard_normal(100_003) * 0.02).astype(np.float32)
+    r[:3] = [np.nan, 0.0, 1e-13]
+    valid = rng.random(r.size) > 0.05
+    cs = np.sort(rng.normal(0, 0.02, 255)).astype(np.float32)
+    args = [torch.from_numpy(x) for x in (r, valid, cs)]
+    got = binning.assign_nearest(*[a.to(cuda) for a in args], 1e-3)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  binning.assign_nearest(*args, 1e-3).numpy())
+    assert binning.log_range(args[0].to(cuda), args[1].to(cuda)) == \
+        binning.log_range(args[0], args[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["zlib", "rans"])
+def test_cuda_sharded_matches_cpu(cuda, monkeypatch, codec):
+    """ShardedCompressor over four shards on the one card against the same
+    driver on CPU shards, each kernel once per shard and delta step; the
+    ShardedDecompressor on the card reads back bit-identically."""
+    from repro_torch.distributed.pipeline import (ShardedCompressor,
+                                                  ShardedDecompressor)
+
+    monkeypatch.setattr(rans, "DEVICE_MIN_BYTES", 0)
+    arrays = list(generate_series("stir", 4, seed=0, scale=4))
+    params = repro_torch.NumarckParams(codec=codec, block_bytes=1024)
+    for k in ops.KERNELS:
+        k.launches = 0
+    sc = ShardedCompressor([cuda] * 4, params)
+    got = sc.compress_series(arrays)
+    sc.close()
+    for k in (change_ratio.KERNEL, hist.KERNEL, bitpack.KERNEL,
+              dequant.KERNEL):
+        assert k.launches == 4 * 3, k.name
+    assert rans.ENCODE.launches == (12 if codec == "rans" else 0)
+    cpu = ShardedCompressor(["cpu"] * 4, params)
+    _same_steps(got, cpu.compress_series(arrays))
+    cpu.close()
+    recon = ShardedDecompressor([cuda] * 4).decompress_series(got)
+    for a, b in zip(recon, repro_torch.decompress_series(got,
+                                                         device="cpu")):
+        np.testing.assert_array_equal(a, b)
