@@ -27,13 +27,29 @@ Phases, each fatal on failure (exit code 1, no result line):
               bit-identical to device="cpu", within E; read_range windows
               across block edges and around exceptions equal the full
               decode; a flipped byte in a block raises CorruptBlockError.
-  5. warm     one warm CMIP step, stage by stage (host clock), with zlib
+  5. strategies  equal-width, k-means and log-scale CMIP and Sedov series
+              (equal also with rans), byte-identical to device="cpu".
+  6. sharded  ShardedCompressor / ShardedDecompressor over 4 shards on the
+              card, and a two-rank MultiProcessCompressor over gloo.
+  7. warm     one warm CMIP step, stage by stage (host clock), with zlib
               and with rans, and one warm read step of each.  Then the
               rANS route on both sides of DEVICE_MIN_BYTES: one warm
               step and its read through the host coder and through the
               kernels, at Sedov's step and at CMIP steps cut to
               ROUTE_SIZES elements; the routes must agree bit for bit.
-  6. kernels  each kernel against its plain version on the card, exactly,
+  8. telemetry  the warm CMIP series with zlib and rans v1 under
+              telemetry.capture(): NCK bytes equal to telemetry off, the
+              reference's per-step and per-read key sets and spans, the
+              rollup in ms per stage, Chrome traces under chiprun_out/,
+              the device idle share of one warm series from a
+              torch.profiler trace; 4 shards under telemetry; the
+              entropy process pool forked after CUDA started.
+  9. checkpoint  CheckpointManager: five async saves of two full-width
+              Llama-3.2-1B layers with their Adam moments (device chain;
+              kernels 1-4 once per lossy tensor per delta save), step
+              files equal to a host chain's, restore onto a "meta"
+              template, and a walk-back past a flipped byte.
+  10. kernels each kernel against its plain version on the card, exactly,
               at n = 42*360*240 (the CMIP step) and n = 2^26, with timings
               (median of 20 launches, CUDA events, after warm-up) beside
               the bound the card's memory and arithmetic rates set.  The
@@ -61,8 +77,10 @@ src/ beside it and a CUDA device, and exits non-zero without either.
 from __future__ import annotations
 
 import dataclasses
+import gzip
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -951,6 +969,469 @@ def anchor_encode(torch, np, dev, first, params, table) -> None:
         f"assembly) {route_ms:.1f} ms, the launches alone {ms:.4f} ms")
 
 
+# Spans the reference's single-device driver records on the telemetry
+# phase's path (compress_series, TemporalArchive.write, decompress_series);
+# the port adds encode.pack_fetch (its bit-pack runs on the card).
+REF_SPANS = {
+    "zlib": {"encode.analyze", "encode.index", "encode.exceptions",
+             "encode.device_entropy", "encode.idx_fetch", "finalize",
+             "finalize.exceptions", "finalize.entropy", "finalize.anchor",
+             "finalize.task", "entropy.compress", "entropy.batch",
+             "nck.write", "nck.fsync", "nck.rename", "decode.entropy",
+             "decode.dequant", "decode.patch"},
+}
+REF_SPANS["rans"] = REF_SPANS["zlib"] | {"decode.fetch"}
+# Llama-3.2-1B (src/repro/configs/llama3_2_1b.py): one decoder layer's
+# weights, float32, at full width.
+LLAMA_LAYER = {"attn": {"q": (2048, 2048), "k": (2048, 512),
+                        "v": (2048, 512), "o": (2048, 2048)},
+               "mlp": {"gate": (2048, 8192), "up": (2048, 8192),
+                       "down": (8192, 2048)},
+               "attn_norm": {"scale": (2048,)},
+               "mlp_norm": {"scale": (2048,)}}
+CKPT_LAYERS = 2                    # of the model's 16 decoder layers
+CKPT_SAVES = 5
+OUT = ROOT / "chiprun_out"
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def idle_share(trace_path: str, window: str) -> dict:
+    """The part of the profiled window in which no kernel ran on the card,
+    from a torch.profiler Chrome trace: the union of the kernel intervals
+    against the host span ``window`` (a record_function around the run,
+    which ends in a synchronize).  Also with copies and memsets counted as
+    busy, and the kernels' total time by name."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    win = [e for e in events if e.get("name") == window
+           and e.get("cat") == "user_annotation"]
+    if len(win) != 1:
+        raise AssertionError(f"profiler trace holds {len(win)} '{window}' "
+                             "windows")
+    t0, t1 = win[0]["ts"], win[0]["ts"] + win[0]["dur"]
+
+    def busy(cats):
+        spans = sorted((max(e["ts"], t0), min(e["ts"] + e["dur"], t1))
+                       for e in events if e.get("cat") in cats
+                       and e.get("ph") == "X")
+        total, end = 0.0, t0
+        for a, b in spans:
+            a = max(a, end)
+            if b > a:
+                total += b - a
+                end = b
+        return total
+
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        raise AssertionError("the profiler recorded no kernel on the card")
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    span = t1 - t0
+    k_busy = busy({"kernel"})
+    all_busy = busy({"kernel", "gpu_memcpy", "gpu_memset"})
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(window_ms=span / 1e3, kernel_busy_ms=k_busy / 1e3,
+                idle_share=1 - k_busy / span,
+                idle_share_with_copies=1 - all_busy / span,
+                kernels=len(kernels),
+                top_kernels_ms={n[:60]: round(t / 1e3, 4) for n, t in top})
+
+
+class _GilXorCodec:
+    """A pure-Python codec that holds the GIL, registered for the entropy
+    process-pool check (forked workers inherit it)."""
+
+    name = "_smoke_gil_xor"
+    holds_gil = True
+    device = False
+
+    def compress(self, raw: bytes, level: int) -> bytes:
+        return bytes(b ^ 0x5A for b in raw)
+
+    def decompress(self, blob: bytes) -> bytes:
+        return bytes(b ^ 0x5A for b in blob)
+
+
+def telemetry_phase(torch, np, dev, data: dict, launches: dict) -> None:
+    """The warm CMIP series with zlib and with rans v1 under
+    telemetry.capture(): NCK bytes equal to the run with telemetry off,
+    the canonical per-step and per-read key sets, every span the
+    reference's driver records on that path, the rollup in ms per stage,
+    a Chrome trace under chiprun_out/, and the device idle share of one
+    warm series under torch.profiler; then 4 shards at 64 KB blocks under
+    telemetry (the single-device key set), and a GIL-holding codec
+    through the forked entropy process pool after CUDA is initialised."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch import TemporalArchive, compress_series
+    from repro_torch import decompress_series
+    from repro_torch.core import entropy
+    from repro_torch.core.types import NumarckParams
+    from repro_torch.distributed.pipeline import (ShardedCompressor,
+                                                  ShardedDecompressor)
+    from repro_torch.kernels import ops
+    from repro_torch.obs import report, telemetry, trace
+    from repro_torch.obs.report import (READ_TELEMETRY_KEYS,
+                                        STEP_TELEMETRY_KEYS)
+
+    OUT.mkdir(exist_ok=True)
+    card = card_line()
+    arrays = data["cmip"]
+
+    def check_keys(label, steps):
+        for i, st in enumerate(steps):
+            if tuple(st.meta["telemetry"]) != STEP_TELEMETRY_KEYS:
+                raise AssertionError(f"{label} step {i}: telemetry keys "
+                                     f"{tuple(st.meta['telemetry'])}")
+            if tuple(st.meta["telemetry_read"]) != READ_TELEMETRY_KEYS:
+                raise AssertionError(f"{label} step {i}: read telemetry "
+                                     "keys "
+                                     f"{tuple(st.meta['telemetry_read'])}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for codec in ("zlib", "rans"):
+            p = NumarckParams(error_bound=E, codec=codec)
+            off = compress_series(arrays, p, chain="device", device=dev)
+            TemporalArchive.write(os.path.join(tmp, "off.nck"), "v", off)
+            with telemetry.capture() as reg:
+                on, got = counted(torch, ops.KERNELS, lambda: compress_series(
+                    arrays, p, chain="device", device=dev))
+                TemporalArchive.write(os.path.join(tmp, "on.nck"), "v", on)
+                recon = decompress_series(on, device=dev)
+            launches[f"telemetry {codec}"] = got
+            check_counts(f"telemetry {codec}", got,
+                         compress_launches(len(arrays), p))
+            if open(os.path.join(tmp, "on.nck"), "rb").read() != open(
+                    os.path.join(tmp, "off.nck"), "rb").read():
+                raise AssertionError(f"telemetry {codec}: NCK bytes differ "
+                                     "from the run with telemetry off")
+            check_recon(np, f"telemetry {codec}", arrays, recon)
+            check_keys(f"telemetry {codec}", on)
+            missing = REF_SPANS[codec] - set(reg.span_names())
+            if missing:
+                raise AssertionError(f"telemetry {codec}: spans missing "
+                                     f"{sorted(missing)}")
+            roll = report.rollup(reg)
+            log(f"telemetry {codec} rollup, ms per stage (count x mean = "
+                "total): " + ", ".join(
+                    f"{k} {v['count']}x{v['mean_s'] * 1e3:.2f}="
+                    f"{v['total_s'] * 1e3:.1f}"
+                    for k, v in sorted(roll["spans"].items())))
+            ser = report.series_rollup(on)
+            log(f"telemetry {codec} per-step record, series totals ms: "
+                + json.dumps({k: round(v * 1e3, 2)
+                              for k, v in ser["totals"].items()})
+                + f"; bytes in {ser['bytes_in']}, out {ser['bytes_out']}, "
+                f"entropy ratio mean {ser['entropy_ratio_mean']:.3f}; "
+                f"NCK bytes identical to telemetry off; {card}")
+            path = trace.write_chrome_trace(
+                str(OUT / f"telemetry_{codec}.json"), reg)
+            log(f"telemetry {codec}: Chrome trace {os.path.relpath(path, ROOT)}"
+                f" ({len(reg.spans)} spans)")
+
+            # The device idle share of one warm series (telemetry off: the
+            # path users run), and with telemetry on (its stage syncs).
+            for tele in (False, True):
+                tag = f"{codec}{'_telemetry' if tele else ''}"
+                acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                torch.cuda.synchronize()
+                reg = telemetry.start() if tele else None
+                try:
+                    with profile(activities=acts) as prof:
+                        with record_function("chip_smoke.series"):
+                            compress_series(arrays, p, chain="device",
+                                            device=dev)
+                            torch.cuda.synchronize()
+                finally:
+                    if tele:
+                        telemetry.stop()
+                tpath = str(OUT / f"profile_{tag}.json")
+                prof.export_chrome_trace(tpath)
+                share = idle_share(tpath, "chip_smoke.series")
+                with open(tpath, "rb") as f, gzip.open(tpath + ".gz",
+                                                       "wb") as g:
+                    shutil.copyfileobj(f, g)
+                os.remove(tpath)
+                tpath += ".gz"
+                log(f"device idle share, warm CMIP series, {tag}: "
+                    f"{share['idle_share']:.4f} of a "
+                    f"{share['window_ms']:.1f} ms window (kernels busy "
+                    f"{share['kernel_busy_ms']:.2f} ms in "
+                    f"{share['kernels']} kernels; idle counting copies as "
+                    f"busy {share['idle_share_with_copies']:.4f}); top "
+                    f"kernels ms {json.dumps(share['top_kernels_ms'])}; "
+                    f"trace {os.path.relpath(tpath, ROOT)}; {card}")
+
+    # Four shards at 64 KB blocks: the single-device key set.
+    p = NumarckParams(error_bound=E, block_bytes=SHARD_BLOCK_BYTES)
+    sc = ShardedCompressor([dev] * SHARDS, p)
+    off = sc.compress_series(arrays)
+    with telemetry.capture() as reg:
+        on, got = counted(torch, ops.KERNELS,
+                          lambda: sc.compress_series(arrays))
+        ShardedDecompressor([dev] * SHARDS).decompress_series(on)
+    sc.close()
+    launches["telemetry sharded"] = got
+    check_counts("telemetry sharded", got,
+                 shard_launches(len(arrays), p, SHARDS))
+    if [s.index_blocks for s in on] != [s.index_blocks for s in off]:
+        raise AssertionError("telemetry sharded: blobs differ from the run "
+                             "with telemetry off")
+    check_keys("telemetry sharded", on)
+    roll = report.rollup(reg)
+    log(f"telemetry sharded x{SHARDS}, 64 KB blocks: per-step and per-read "
+        "keys equal the single-device driver's; rollup ms: " + ", ".join(
+            f"{k} {v['total_s'] * 1e3:.1f}"
+            for k, v in sorted(roll["spans"].items())))
+
+    # The entropy process pool, forked after CUDA has started: workers
+    # run the codec's Python code only.
+    entropy.register_codec(_GilXorCodec())
+    raws = [np.random.default_rng(i).integers(0, 256, 1 << 19)
+            .astype(np.uint8).tobytes() for i in range(8)]
+    serial = entropy.compress_blocks(raws, codec=_GilXorCodec.name,
+                                     parallel=False)
+    t0 = time.perf_counter()
+    pooled = entropy.compress_blocks(raws, codec=_GilXorCodec.name)
+    pool_s = time.perf_counter() - t0
+    if pooled != serial or entropy._proc_pool is None:
+        raise AssertionError("entropy process pool: output differs from the "
+                             "serial loop, or the pool was retired")
+    entropy._proc_pool.shutdown(wait=True)
+    entropy._proc_pool = None
+    log(f"entropy process pool after CUDA init: {len(raws)} blocks of a "
+        f"GIL-holding codec in {pool_s * 1e3:.1f} ms, identical to the "
+        "serial loop")
+
+
+def llama_tree(torch, dev, gen) -> dict:
+    """Parameters and Adam moments of CKPT_LAYERS Llama-3.2-1B decoder
+    layers at full width (float32, on the card), and an int step."""
+    def layer(make):
+        return {k: {n: make(shape) for n, shape in sub.items()}
+                for k, sub in LLAMA_LAYER.items()}
+
+    def normal(scale):
+        return lambda shape: torch.randn(shape, generator=gen, device=dev) \
+            * scale
+
+    def second_moment(shape):
+        g = torch.randn(shape, generator=gen, device=dev) * 1e-3
+        return g * g + 1e-12
+
+    return {"params": {"layers": [layer(normal(0.02))
+                                  for _ in range(CKPT_LAYERS)]},
+            "opt": {"m": {"layers": [layer(normal(1e-3))
+                                     for _ in range(CKPT_LAYERS)]},
+                    "v": {"layers": [layer(second_moment)
+                                     for _ in range(CKPT_LAYERS)]},
+                    "step": 0}}
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_items(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_items(tree[k], path + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from tree_items(v, path + (str(i),))
+    else:
+        yield "/".join(path), tree
+
+
+def leaves_of(tree) -> dict:
+    return dict(tree_items(tree))
+
+
+def checkpoint_phase(torch, np, dev, launches: dict) -> None:
+    """CheckpointManager on the card: five async saves (anchor_every=4,
+    device chain) of the parameters and Adam moments of two full-width
+    Llama-3.2-1B layers, each float leaf drifting by 1 % between saves.
+    Kernels 1-4 once per lossy tensor per delta save; step files and
+    manifest identical to the same saves with a host chain; restore_latest
+    onto a "meta" template exact; a byte flipped in the newest file walks
+    the restore back one step (one report entry), lossless leaves exact
+    and lossy ones within the bound."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.types import NumarckParams
+    from repro_torch.kernels import ops
+    from repro_torch.obs import report, telemetry
+
+    card = card_line()
+    exempt = ("scale", "step", "pos_map")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    drift = torch.Generator(device=dev).manual_seed(1)
+    first = llama_tree(torch, dev, gen)
+    leaves = leaves_of(first)
+    lossy = [k for k, v in leaves.items()
+             if torch.is_tensor(v) and v.numel() >= 4096
+             and not any(s in k for s in exempt)]
+    n_vals = sum(v.numel() for v in leaves.values() if torch.is_tensor(v))
+
+    def evolve(tree):
+        def f(x):
+            if torch.is_tensor(x):
+                return x * (1 + 0.01 * torch.randn(
+                    x.shape, generator=drift, device=dev))
+            return x + 1
+        return tree_map(f, tree)
+
+    states = [first]
+    for _ in range(CKPT_SAVES - 1):
+        states.append(evolve(states[-1]))
+    torch.cuda.synchronize()
+    params = NumarckParams(error_bound=E)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for chain in ("device", "host"):
+            d = os.path.join(tmp, chain)
+            mgr = CheckpointManager(d, params, anchor_every=4,
+                                    keep=CKPT_SAVES, async_save=True,
+                                    chain=chain, device=dev)
+            call_ms = []
+
+            def saves():
+                futs = []
+                for i, st in enumerate(states):
+                    t0 = time.perf_counter()
+                    futs.append(mgr.save(i, st))
+                    call_ms.append((time.perf_counter() - t0) * 1e3)
+                mgr.wait()
+                return [f.result() for f in futs]
+
+            reg = telemetry.start()
+            t0 = time.perf_counter()
+            try:
+                stats, got = counted(torch, ops.KERNELS, saves)
+            finally:
+                telemetry.stop()
+            wall = time.perf_counter() - t0
+            mgr.close()
+            res[chain] = dict(dir=d, stats=stats, wall=wall, call_ms=call_ms,
+                              reg=reg)
+            # Kernels 1-3 per lossy tensor per delta save; the device
+            # chain advances through kernel 4 too.
+            deltas = sum(not s["anchor"] for s in stats)
+            want = {k: deltas * len(lossy) for k in
+                    ("change_ratio", "hist", "bitpack", "dequant")}
+            if chain == "host":
+                want["dequant"] = 0
+            check_counts(f"checkpoint {chain}", got, want)
+            launches[f"checkpoint {chain}"] = got
+        files = {c: {f: open(os.path.join(r["dir"], f), "rb").read()
+                     for f in sorted(os.listdir(r["dir"]))}
+                 for c, r in res.items()}
+        if files["device"] != files["host"]:
+            raise AssertionError("checkpoint: step files differ between the "
+                                 "device and the host chain")
+        r = res["device"]
+        spans = report.rollup(r["reg"])["spans"]
+        saves_ms = [s.duration * 1e3 for s in r["reg"].spans
+                    if s.name == "ckpt.save"]
+        orig = sum(s["orig_bytes"] for s in r["stats"])
+        comp = sum(s["comp_bytes"] for s in r["stats"])
+        log(f"checkpoint: {CKPT_LAYERS} Llama-3.2-1B layers + Adam m, v "
+            f"({len(leaves)} leaves, {n_vals} values, "
+            f"{orig / CKPT_SAVES / 1e9:.3f} GB a save, {len(lossy)} lossy), "
+            f"{CKPT_SAVES} async saves, anchor_every=4, chain device: launches"
+            f" {json.dumps(launches['checkpoint device'])}; ms per save "
+            f"(ckpt.save, worker) "
+            + json.dumps([round(x, 1) for x in saves_ms])
+            + ", save() call on the caller "
+            + json.dumps([round(x, 1) for x in r["call_ms"]])
+            + f", all {r['wall'] * 1e3:.1f} (host chain "
+            f"{res['host']['wall'] * 1e3:.1f}; both under telemetry); CR "
+            "per save "
+            + json.dumps([round(s["ratio"], 3) for s in r["stats"]])
+            + f", all {orig / comp:.3f}; ckpt.encode "
+            f"{spans['ckpt.encode']['total_s'] * 1e3:.1f} ms, ckpt.write "
+            f"{spans['ckpt.write']['total_s'] * 1e3:.1f} ms in all; step "
+            f"files identical to the host chain's; {card}")
+
+        # Restore the newest step (an anchor) onto a "meta" template.
+        mgr = CheckpointManager(r["dir"], params, device=dev)
+        template = tree_map(lambda x: torch.empty(x.shape, device="meta")
+                            if torch.is_tensor(x) else x, states[-1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step, tree = mgr.restore_latest(template=template)
+        torch.cuda.synchronize()
+        t_latest = time.perf_counter() - t0
+        if step != CKPT_SAVES - 1 or mgr.last_restore_report:
+            raise AssertionError(f"checkpoint restore: step {step}, report "
+                                 f"{mgr.last_restore_report}")
+        want_leaves = leaves_of(states[-1])
+        for k, v in tree_items(tree):
+            want = want_leaves[k]
+            if torch.is_tensor(want):
+                if v.device != want.device or not torch.equal(v, want):
+                    raise AssertionError(f"checkpoint restore: leaf {k} "
+                                         "differs from the anchor's")
+            elif v != want:
+                raise AssertionError(f"checkpoint restore: {k} = {v}")
+        del tree
+
+        # A flipped byte in the newest file: walk back to the delta step.
+        newest = os.path.join(r["dir"], f"step_{CKPT_SAVES - 1:08d}.nck")
+        raw = bytearray(open(newest, "rb").read())
+        raw[len(raw) // 2] ^= 0x40
+        open(newest, "wb").write(bytes(raw))
+        mgr = CheckpointManager(r["dir"], params, device=dev)
+        with telemetry.capture() as reg:
+            t0 = time.perf_counter()
+            step, tree = mgr.restore_latest(template=states[-2])
+            torch.cuda.synchronize()
+            t_back = time.perf_counter() - t0
+        read_ms = {k: round(v["total_s"] * 1e3, 1) for k, v in
+                   sorted(report.rollup(reg)["spans"].items())}
+        if step != CKPT_SAVES - 2 or len(mgr.last_restore_report) != 1:
+            raise AssertionError(f"checkpoint walk-back: step {step}, report "
+                                 f"{mgr.last_restore_report}")
+        want_leaves = leaves_of(states[-2])
+        worst, above = 0.0, 0
+        for k, v in tree_items(tree):
+            want = want_leaves[k]
+            if k not in lossy:
+                if (torch.is_tensor(want) and not torch.equal(v, want)) or (
+                        not torch.is_tensor(want) and v != want):
+                    raise AssertionError(f"checkpoint walk-back: lossless "
+                                         f"leaf {k} differs")
+                continue
+            rel = ((v - want).abs() / want.abs())
+            worst = max(worst, float(rel.max()))
+            above += int((rel > E).sum())
+        # Elementwise |recon - x| <= E |previous recon|: relative to x the
+        # bound is E / (1 + r), under 1.1 E for 1 % drift (r > -9 %).
+        if worst > 1.1 * E:
+            raise AssertionError(f"checkpoint walk-back: max relative error "
+                                 f"{worst:.3e} > 1.1 E")
+    log(f"checkpoint restore ms: newest (anchor, onto a meta template) "
+        f"{t_latest * 1e3:.1f}, after a flipped byte walked back to step "
+        f"{step} (anchor + {step} deltas) {t_back * 1e3:.1f}, under "
+        f"telemetry, its spans ms {json.dumps(read_ms)}; report "
+        f"{json.dumps(mgr.last_restore_report)[:160]}; lossless leaves "
+        f"exact, lossy max relative error {worst:.3e} ({above} of "
+        f"{sum(want_leaves[k].numel() for k in lossy)} values above E, "
+        f"within E / (1 + r)); {card}")
+
+
 def run(torch, np) -> dict:
     from repro_torch import compress_series, decompress_series, interop
     from repro_torch.core import compress, packing, ratios
@@ -1116,7 +1597,13 @@ def run(torch, np) -> dict:
 
     route_times(torch, np, dev, data)
 
-    # -- 8. each kernel against its plain version, timed -------------------
+    # -- 8. telemetry on the card, the step trace ---------------------------
+    telemetry_phase(torch, np, dev, data, launches)
+
+    # -- 9. the checkpoint manager ----------------------------------------
+    checkpoint_phase(torch, np, dev, launches)
+
+    # -- 10. each kernel against its plain version, timed ------------------
     log_clocks("before the kernel phase")
     prev_big, curr_big = big_pair(np, N_BIG)
     pairs = {"cmip": (data["cmip"][0].reshape(-1), data["cmip"][1].reshape(-1)),
@@ -1319,10 +1806,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     try:
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60, check=True).stdout.strip().splitlines()[0]
+        card = card_line()
         log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
             f"{torch.cuda.get_device_name(0)}")
         table = run(torch, np)

@@ -16,6 +16,7 @@ residency never changes output.
 """
 from __future__ import annotations
 
+import copy
 from typing import Any, Optional
 
 import numpy as np
@@ -70,6 +71,11 @@ class ReferenceChain:
     either ``advance(dev, curr)`` (REF_RECONSTRUCTED) or ``replace(arr)``
     (REF_ORIGINAL).  ``peek()`` hands the state to the encode stage in the
     chain's own residency; ``to_host()`` returns a private host copy.
+    Chains treat their state as immutable (every ``seed`` and ``advance``
+    builds a new one), so ``fork()`` is a cheap handle copy: a consumer
+    that must stage an advance and commit it later (the checkpoint
+    manager, after the step file is durable) forks, advances the fork and
+    swaps it in.
     """
 
     residency: str = "?"
@@ -80,6 +86,12 @@ class ReferenceChain:
     @property
     def empty(self) -> bool:
         return self._state is None
+
+    def reset(self) -> None:
+        self._state = None
+
+    def fork(self) -> "ReferenceChain":
+        return copy.copy(self)
 
     def seed(self, arr) -> None:
         raise NotImplementedError

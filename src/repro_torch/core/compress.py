@@ -31,6 +31,13 @@ Decompression of rANS steps runs on the decompressor's device
 (``device_decode_route``): the rANS decode kernel, the dequantize kernel,
 then the exception patch, with the chain state kept there between steps.
 Other codecs take the host route, as in the reference.
+
+Telemetry (``repro_torch.obs``): the reference's ``encode.*`` and
+``decode.*`` spans, the driver timings in ``meta["telemetry"]`` that
+finalize folds into the per-step record, and the per-read record
+``meta["telemetry_read"]``.  With telemetry enabled each device stage
+ends in a ``torch.cuda.synchronize`` so a span means stage time, as the
+reference's ``block_until_ready``; disabled, nothing waits.
 """
 from __future__ import annotations
 
@@ -53,12 +60,21 @@ from repro_torch.faults.errors import IntegrityError
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import rans
 from repro_torch.kernels.dequant import patch_exceptions
+from repro_torch.obs import telemetry
 
 
 def _to_device(x, device: torch.device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device)
     return torch.tensor(np.asarray(x), device=device)
+
+
+def _sync(dev: torch.device) -> None:
+    """End a device stage under telemetry: wait for the work queued on
+    ``dev`` (the reference's ``block_until_ready``).  Callers guard it
+    with ``telemetry.enabled()``, so a disabled run never waits."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def _analyze(prev: torch.Tensor, curr: torch.Tensor, params: NumarckParams,
@@ -207,52 +223,81 @@ def encode_device(prev, curr, params: NumarckParams,
         raise ValueError("temporal steps must share a shape")
     dtype = np.dtype(str(curr_t.dtype).removeprefix("torch."))
     n = curr_t.numel()
-    a = _analyze(prev_t.reshape(-1), curr_t.reshape(-1), params,
-                 dtype.itemsize)
-    if params.strategy == STRATEGY_TOPK:
-        b_bits = int(params.b_bits if params.b_bits is not None
-                     else a["b_auto"])
-        k_eff = min((1 << b_bits) - 1, params.max_bins)
-        idx = _encode_topk(a["bin_ids"], a["ids_desc"], b_bits, k_eff,
-                           params.max_bins)
-        centers = pipe.topk_centers(a["ids_desc"][:k_eff].cpu().numpy(),
-                                    k_eff, float(a["domain_lo"]),
-                                    float(a["width"]))
-    else:
-        b_bits = int(params.b_bits if params.b_bits is not None else 8)
-        k_eff = (1 << b_bits) - 1
-        cs = _strategy_centers(a, params, k_eff)
-        idx = _encode_centers(a["ratios"], a["valid"],
-                              torch.from_numpy(cs).to(dev),
-                              params.error_bound, b_bits)
-        centers = cs.astype(np.float64)
+    tele = telemetry.enabled()
+    with telemetry.span("encode.analyze", annotate=True) as sp_an:
+        a = _analyze(prev_t.reshape(-1), curr_t.reshape(-1), params,
+                     dtype.itemsize)
+        if tele:
+            _sync(dev)
+    with telemetry.span("encode.index", annotate=True,
+                        strategy=params.strategy) as sp_idx:
+        if params.strategy == STRATEGY_TOPK:
+            b_bits = int(params.b_bits if params.b_bits is not None
+                         else a["b_auto"])
+            k_eff = min((1 << b_bits) - 1, params.max_bins)
+            idx = _encode_topk(a["bin_ids"], a["ids_desc"], b_bits, k_eff,
+                               params.max_bins)
+            centers = pipe.topk_centers(a["ids_desc"][:k_eff].cpu().numpy(),
+                                        k_eff, float(a["domain_lo"]),
+                                        float(a["width"]))
+        else:
+            b_bits = int(params.b_bits if params.b_bits is not None else 8)
+            k_eff = (1 << b_bits) - 1
+            cs = _strategy_centers(a, params, k_eff)
+            idx = _encode_centers(a["ratios"], a["valid"],
+                                  torch.from_numpy(cs).to(dev),
+                                  params.error_bound, b_bits)
+            centers = cs.astype(np.float64)
+        if tele:
+            _sync(dev)
     del a["ratios"], a["valid"]         # free before packing
     centers = pipe.round_centers(centers, dtype)
     be = params.block_elems(b_bits)
     marker = (1 << b_bits) - 1
     exc_counts = exc_pos = packed = coded = coded_name = None
-    if n:
-        exc_counts, exc_pos = kops.exception_compact(idx, n, marker, be)
-        padded = _pad_blocks(idx, b_bits, be)
-        nblocks = padded.numel() // be
-        if not device_entropy_route(params, n, b_bits):
-            packed = _pack_blocks_device(padded, b_bits, be)
-        elif symbol_entropy_route(params, b_bits, k_eff):
-            # Device entropy stage: finalize takes the finished blobs.
-            coded = rans.compress_blocks_device_symbols(
-                padded, b_bits, k_eff, nblocks, be,
-                a["counts_desc"][:k_eff].cpu().numpy())
-        else:
-            coded = rans.compress_blocks_device(padded, b_bits, nblocks, be)
-        coded_name = params.codec if coded is not None else None
+    with telemetry.span("encode.exceptions") as sp_exc:
+        if n:
+            exc_counts, exc_pos = kops.exception_compact(idx, n, marker, be)
+    on_device = bool(n) and device_entropy_route(params, n, b_bits)
+    with telemetry.span("encode.device_entropy", annotate=True) as sp_de:
+        # Device entropy stage: finalize takes the finished blobs.
+        if on_device:
+            padded = _pad_blocks(idx, b_bits, be)
+            nblocks = padded.numel() // be
+            if symbol_entropy_route(params, b_bits, k_eff):
+                coded = rans.compress_blocks_device_symbols(
+                    padded, b_bits, k_eff, nblocks, be,
+                    a["counts_desc"][:k_eff].cpu().numpy())
+            else:
+                coded = rans.compress_blocks_device(padded, b_bits, nblocks,
+                                                    be)
+            coded_name = params.codec
+    pack_s = 0.0
+    if n and not on_device:
+        # The bit-pack kernel and one copy of the words to the host (the
+        # reference's sharded driver's stage of the same name).
+        with telemetry.span("encode.pack_fetch", annotate=True) as sp_pack:
+            packed = _pack_blocks_device(_pad_blocks(idx, b_bits, be),
+                                         b_bits, be)
+        pack_s = sp_pack.duration
+    with telemetry.span("encode.idx_fetch") as sp_fetch:
+        idx_host = idx.cpu().numpy() if need_host_idx else None
     enc = pipe.EncodedIndices(
-        idx=idx.cpu().numpy() if need_host_idx else None, b_bits=b_bits,
-        block_elems=be, n=n, packed=packed, entropy_coded=coded,
-        entropy_codec=coded_name, exc_positions=exc_pos,
-        exc_block_counts=exc_counts)
+        idx=idx_host, b_bits=b_bits, block_elems=be, n=n, packed=packed,
+        entropy_coded=coded, entropy_codec=coded_name,
+        exc_positions=exc_pos, exc_block_counts=exc_counts)
     meta = {"b_auto": int(a["b_auto"]),
             "est_sizes": a["est_sizes"].numpy().tolist(),
             "ratio_min": float(a["lo"]), "ratio_max": float(a["hi"])}
+    if tele:
+        # Driver stage timings; finalize_step folds them into the
+        # canonical per-step meta["telemetry"] record and pops this dict.
+        meta["telemetry"] = {
+            "analyze_s": sp_an.duration,
+            "encode_s": (sp_idx.duration + sp_exc.duration + pack_s
+                         + sp_fetch.duration),
+            "device_entropy_s": sp_de.duration,
+        }
     return DeviceEncoded(enc=enc, centers=centers,
                          domain_lo=float(a["domain_lo"]),
                          width=float(a["width"]), meta=meta, idx_dev=idx,
@@ -278,26 +323,55 @@ def _torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.zeros(0, dtype)).dtype
 
 
+def _record_read(step: CompressedStep, entropy_s: float = 0.0,
+                 dequant_s: float = 0.0, patch_s: float = 0.0,
+                 fetch_s: float = 0.0, device: bool = False) -> None:
+    """Fold the decode-side span durations into the canonical per-read
+    telemetry record (``obs.report.READ_TELEMETRY_KEYS``), identical
+    across the single-device, sharded and anchor read paths."""
+    step.meta["telemetry_read"] = {
+        "entropy_s": entropy_s, "dequant_s": dequant_s, "patch_s": patch_s,
+        "fetch_s": fetch_s,
+        "bytes_in": int(sum(len(b) for b in step.index_blocks)),
+        "bytes_out": int(step.n) * np.dtype(step.dtype).itemsize,
+        "codec": step.codec, "device_decode": bool(device)}
+
+
+def _fetch(step: CompressedStep, out: torch.Tensor) -> np.ndarray:
+    """The one copy of a device reconstruction to the host, timed as
+    ``decode.fetch`` into the step's read record."""
+    with telemetry.span("decode.fetch", annotate=True) as sp_f:
+        host = out.to("cpu", copy=True).numpy()
+    if telemetry.enabled() and "telemetry_read" in step.meta:
+        step.meta["telemetry_read"]["fetch_s"] = sp_f.duration
+    return host
+
+
 def decode_anchor(step: CompressedStep, device=None) -> np.ndarray:
     """Reconstruction of a losslessly stored anchor step, on the host.
     On the device decode route the rANS decode kernel inflates the blocks
     on ``device`` (CUDA unless the caller asks for the CPU) and only the
     finished bytes come back; otherwise the host codecs inflate them."""
     dev = chainmod.resolve_device(device)
-    if device_decode_route(step):
-        raw = rans.decode_bytes_blocks_device(step.index_blocks,
-                                              dev).cpu().numpy().tobytes()
-    else:
-        raw = b"".join(entropy.decompress_blocks(step.index_blocks,
-                                                 step.codec))
+    route = device_decode_route(step)
+    with telemetry.span("decode.entropy", annotate=True) as sp_e:
+        if route:
+            raw = rans.decode_bytes_blocks_device(
+                step.index_blocks, dev).cpu().numpy().tobytes()
+        else:
+            raw = b"".join(entropy.decompress_blocks(step.index_blocks,
+                                                     step.codec))
     try:
-        return np.frombuffer(raw, dtype=step.dtype).reshape(step.shape).copy()
+        out = np.frombuffer(raw, dtype=step.dtype).reshape(step.shape).copy()
     except ValueError as e:
         raise IntegrityError(
             f"anchor decode produced {len(raw)} bytes, expected "
             f"{step.n * np.dtype(step.dtype).itemsize} for shape "
             f"{tuple(step.shape)} {step.dtype} ({e}) -- payload corrupt "
             "or truncated") from e
+    if telemetry.enabled():
+        _record_read(step, entropy_s=sp_e.duration, device=route)
+    return out
 
 
 def decode_anchor_device(step: CompressedStep, device=None) -> torch.Tensor:
@@ -308,14 +382,21 @@ def decode_anchor_device(step: CompressedStep, device=None) -> torch.Tensor:
     dev = chainmod.resolve_device(device)
     if not device_decode_route(step):
         return torch.from_numpy(decode_anchor(step, dev)).to(dev)
-    flat = rans.decode_bytes_blocks_device(step.index_blocks, dev)
-    want = step.n * np.dtype(step.dtype).itemsize
-    if flat.numel() != want:
-        raise IntegrityError(
-            f"anchor decode produced {flat.numel()} bytes, expected {want} "
-            f"for shape {tuple(step.shape)} {step.dtype} -- payload "
-            "corrupt or truncated")
-    return flat.view(_torch_dtype(step.dtype)).reshape(step.shape)
+    tele = telemetry.enabled()
+    with telemetry.span("decode.entropy", annotate=True) as sp_e:
+        flat = rans.decode_bytes_blocks_device(step.index_blocks, dev)
+        want = step.n * np.dtype(step.dtype).itemsize
+        if flat.numel() != want:
+            raise IntegrityError(
+                f"anchor decode produced {flat.numel()} bytes, expected "
+                f"{want} for shape {tuple(step.shape)} {step.dtype} -- "
+                "payload corrupt or truncated")
+        out = flat.view(_torch_dtype(step.dtype)).reshape(step.shape)
+        if tele:
+            _sync(dev)
+    if tele:
+        _record_read(step, entropy_s=sp_e.duration, device=True)
+    return out
 
 
 def _decode_index_host(step: CompressedStep) -> np.ndarray:
@@ -351,18 +432,32 @@ def decompress_step_device(step: CompressedStep, prev,
         raise ValueError("non-anchor steps need the previous state")
     dev = (prev.device if isinstance(prev, torch.Tensor)
            else chainmod.resolve_device(device))
+    tele = telemetry.enabled()
     cdt = _torch_dtype(pipe.reconstruction_dtype(step.dtype))
-    idx = rans.decode_blocks_device(step.index_blocks, step.b_bits,
-                                    step.block_elems, dev)
-    idx = idx.reshape(-1)[:step.n].contiguous()
-    prev_t = _to_device(prev, dev).reshape(-1).to(cdt).contiguous()
-    centers = torch.tensor(step.centers, device=dev).to(cdt)
-    recon = kops.dequantize(idx, prev_t, centers, b_bits=step.b_bits)
-    if step.n_incompressible:
-        recon = patch_exceptions(recon, idx,
-                                 torch.tensor(step.incomp_values, device=dev),
-                                 b_bits=step.b_bits)
-    return recon.to(_torch_dtype(step.dtype)).reshape(step.shape)
+    with telemetry.span("decode.entropy", annotate=True) as sp_e:
+        idx = rans.decode_blocks_device(step.index_blocks, step.b_bits,
+                                        step.block_elems, dev)
+        idx = idx.reshape(-1)[:step.n].contiguous()
+        if tele:
+            _sync(dev)
+    with telemetry.span("decode.dequant", annotate=True) as sp_d:
+        prev_t = _to_device(prev, dev).reshape(-1).to(cdt).contiguous()
+        centers = torch.tensor(step.centers, device=dev).to(cdt)
+        recon = kops.dequantize(idx, prev_t, centers, b_bits=step.b_bits)
+        if tele:
+            _sync(dev)
+    with telemetry.span("decode.patch", annotate=True) as sp_p:
+        if step.n_incompressible:
+            recon = patch_exceptions(
+                recon, idx, torch.tensor(step.incomp_values, device=dev),
+                b_bits=step.b_bits)
+        out = recon.to(_torch_dtype(step.dtype)).reshape(step.shape)
+        if tele:
+            _sync(dev)
+    if tele:
+        _record_read(step, entropy_s=sp_e.duration, dequant_s=sp_d.duration,
+                     patch_s=sp_p.duration, device=True)
+    return out
 
 
 def decompress_step(step: CompressedStep, prev: Optional[np.ndarray],
@@ -378,18 +473,25 @@ def decompress_step(step: CompressedStep, prev: Optional[np.ndarray],
     if prev is None:
         raise ValueError("non-anchor steps need the previous state")
     if device_decode_route(step):
-        return decompress_step_device(step, prev, dev).cpu().numpy()
+        return _fetch(step, decompress_step_device(step, prev, dev))
     cdt = pipe.reconstruction_dtype(step.dtype)
     marker = (1 << step.b_bits) - 1
-    idx = _decode_index_host(step)
-    prev_flat = np.asarray(prev).reshape(-1).astype(cdt, copy=False)
-    centers = np.concatenate([step.centers,
-                              np.zeros(marker + 1 - step.centers.size)
-                              ]).astype(cdt)
-    out = prev_flat * (1 + centers[idx])
-    if step.n_incompressible:
-        # Exception values are compacted in stream order == block order.
-        out[idx == marker] = step.incomp_values.astype(cdt)
+    with telemetry.span("decode.entropy", annotate=True) as sp_e:
+        idx = _decode_index_host(step)
+    with telemetry.span("decode.dequant", annotate=True) as sp_d:
+        prev_flat = np.asarray(prev).reshape(-1).astype(cdt, copy=False)
+        centers = np.concatenate([step.centers,
+                                  np.zeros(marker + 1 - step.centers.size)
+                                  ]).astype(cdt)
+        out = prev_flat * (1 + centers[idx])
+    with telemetry.span("decode.patch", annotate=True) as sp_p:
+        if step.n_incompressible:
+            # Exception values are compacted in stream order == block
+            # order.
+            out[idx == marker] = step.incomp_values.astype(cdt)
+    if telemetry.enabled():
+        _record_read(step, entropy_s=sp_e.duration, dequant_s=sp_d.duration,
+                     patch_s=sp_p.duration, device=False)
     return out.astype(step.dtype).reshape(step.shape)
 
 
@@ -483,7 +585,7 @@ class TemporalDecompressor:
         if not step.is_anchor and device_decode_route(step):
             self._state = decompress_step_device(step, self._state,
                                                  self.device)
-            return self._state.to("cpu", copy=True).numpy()
+            return _fetch(step, self._state)
         prev = (self._state.cpu().numpy()
                 if isinstance(self._state, torch.Tensor) else self._state)
         self._state = decompress_step(step, prev, self.device)

@@ -62,7 +62,9 @@ side is here too: `ShardNCKWriter` publishes one rank's fragments and
 `write_manifest` is rank 0's self-healing commit of the manifest.
 
 Every publish goes through `atomic_commit`: content is fsynced *before*
-the rename makes it visible.  This module is the port's copy of the
+the rename makes it visible.  Under telemetry the publishes record the
+reference's spans: ``nck.write``, ``nck.fsync``, ``nck.rename`` and
+``nck.manifest``.  This module is the port's copy of the
 reference's ``core/container.py``; the files it writes are byte-identical.
 """
 from __future__ import annotations
@@ -84,6 +86,7 @@ from repro_torch.faults.errors import (CommitTimeoutError, CorruptBlockError,
                                        CorruptShardError, IntegrityError)
 from repro_torch.faults.retry import Backoff
 from repro_torch.kernels import rans
+from repro_torch.obs import telemetry
 
 _MAGIC_V1 = b"NCK1"
 _MAGIC_V2 = b"NCK2"
@@ -123,10 +126,13 @@ def atomic_commit(path: str, data: Union[bytes, Iterable[bytes]]) -> None:
                 f.write(chunk)
         f.flush()
         inject.fire("fsync_fail", path=path)
-        os.fsync(f.fileno())        # durable BEFORE the rename publishes it
+        # durable BEFORE the rename publishes it
+        with telemetry.span("nck.fsync"):
+            os.fsync(f.fileno())
     inject.mangle_file(tmp, path)
     inject.fire("rename_fail", path=path)
-    os.replace(tmp, path)           # atomic publish (fault tolerance)
+    with telemetry.span("nck.rename"):
+        os.replace(tmp, path)  # atomic publish (fault tolerance)
 
 
 def _blobs_have_symbol_rans(blobs: List[bytes], codec: str,
@@ -280,7 +286,9 @@ class NCKWriter:
             yield b"\0" * _pad(len(raw))
 
     def write(self, path: str):
-        atomic_commit(path, self._chunks())
+        with telemetry.span("nck.write", path=path,
+                            sections=len(self._sections)):
+            atomic_commit(path, self._chunks())
 
 
 # --------------------------------------------------------------------------
@@ -497,7 +505,8 @@ def write_manifest(path: str, generation: int, num_ranks: int,
         payload["previous"] = {k: v for k, v in previous.items()
                                if k != "previous"}
         keep.add(int(previous["generation"]))
-    atomic_commit(path, _manifest_bytes(payload))
+    with telemetry.span("nck.manifest", path=path, ranks=num_ranks):
+        atomic_commit(path, _manifest_bytes(payload))
     _gc_stale_generations(path, keep)
     return path
 

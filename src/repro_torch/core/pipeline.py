@@ -12,9 +12,11 @@ Stage map:
   encode    device  rank-LUT indexing + bit-packing
   finalize  host    exceptions, entropy stage, blob assembly  (HERE)
 
-The reference's telemetry spans are not ported yet; they only add
-``meta["telemetry"]`` when telemetry is enabled, which it is not by
-default, so blobs and ``meta`` match.
+With telemetry enabled (``repro_torch.obs``) finalize records the
+reference's spans (``finalize``, ``finalize.exceptions``,
+``finalize.entropy``, ``finalize.anchor``) and the canonical per-step
+``meta["telemetry"]`` record (``obs.report.STEP_TELEMETRY_KEYS``); blobs
+are the same either way.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import numpy as np
 
 from repro_torch.core import entropy, packing
 from repro_torch.core.types import CompressedStep, NumarckParams
+from repro_torch.obs import telemetry
 
 
 class StepMeta(dict):
@@ -197,52 +200,82 @@ def finalize_step(curr: np.ndarray, enc: EncodedIndices,
     are taken as they are."""
     curr = np.asarray(curr)
     n = int(enc.n if enc.n is not None else enc.idx.size)
-    if enc.exc_positions is not None:
-        incomp_values = curr.reshape(-1)[enc.exc_positions]
-        incomp_off = np.concatenate(
-            [[0], np.cumsum(enc.exc_block_counts)])[:-1].astype(np.int64)
-    else:
-        incomp_values, incomp_off = exception_table(
-            enc.idx, enc.marker, enc.block_elems, curr.reshape(-1))
-
-    block_codecs: Optional[List[str]] = None
-    if enc.entropy_coded is not None:
-        blks = enc.entropy_coded
-        codec = enc.entropy_codec or entropy.DEFAULT_CODEC
-        bpb = enc.block_elems * enc.b_bits // 8
-        raw_sizes = np.full(len(blks), bpb, np.int64)
-    else:
-        raws = (enc.packed if enc.packed is not None
-                else pack_blocks_host(enc.idx, enc.b_bits, enc.block_elems))
-        raw_sizes = np.asarray([len(r) for r in raws], np.int64)
-        if params.codec == entropy.AUTO_CODEC and len(raws) > 1:
-            # Per-block adaptive pick; the step records concrete ids only
-            # (one per block when they differ).
-            per = entropy.choose_block_codecs(raws, params.zlib_level)
-            if len(set(per)) > 1:
-                codec = _primary_codec(per)
-                block_codecs = per
-                blks = entropy.compress_blocks_per_codec(
-                    raws, per, level=params.zlib_level,
-                    parallel=params.parallel_entropy)
+    # Driver-side stage timings (encode_device/_device_encode attach them
+    # when telemetry is enabled); never persisted into blob bytes -- the
+    # NCK container stores `info` attrs, not `meta`.
+    meta = dict(meta or {})
+    drv_tele = meta.pop("telemetry", None) or {}
+    with telemetry.span("finalize", n=n, b_bits=enc.b_bits) as sp_fin:
+        with telemetry.span("finalize.exceptions") as sp_exc:
+            if enc.exc_positions is not None:
+                incomp_values = curr.reshape(-1)[enc.exc_positions]
+                incomp_off = np.concatenate(
+                    [[0],
+                     np.cumsum(enc.exc_block_counts)])[:-1].astype(np.int64)
             else:
-                codec = per[0]
-                blks = entropy.compress_blocks(
-                    raws, codec=codec, level=params.zlib_level,
-                    parallel=params.parallel_entropy)
-        else:
-            codec = entropy.resolve_codec(params.codec, raws,
-                                          params.zlib_level)
-            blks = entropy.compress_blocks(raws, codec=codec,
-                                           level=params.zlib_level,
-                                           parallel=params.parallel_entropy)
-    centers = round_centers(centers, curr.dtype)
-    if centers.size > enc.marker:
-        centers = centers[:enc.marker]
-    ratio = entropy_ratio(blks, raw_sizes)
+                incomp_values, incomp_off = exception_table(
+                    enc.idx, enc.marker, enc.block_elems, curr.reshape(-1))
+
+        block_codecs: Optional[List[str]] = None
+        with telemetry.span("finalize.entropy") as sp_ent:
+            if enc.entropy_coded is not None:
+                blks = enc.entropy_coded
+                codec = enc.entropy_codec or entropy.DEFAULT_CODEC
+                bpb = enc.block_elems * enc.b_bits // 8
+                raw_sizes = np.full(len(blks), bpb, np.int64)
+            else:
+                raws = (enc.packed if enc.packed is not None
+                        else pack_blocks_host(enc.idx, enc.b_bits,
+                                              enc.block_elems))
+                raw_sizes = np.asarray([len(r) for r in raws], np.int64)
+                if params.codec == entropy.AUTO_CODEC and len(raws) > 1:
+                    # Per-block adaptive pick; the step records concrete
+                    # ids only (one per block when they differ).
+                    per = entropy.choose_block_codecs(raws,
+                                                      params.zlib_level)
+                    if len(set(per)) > 1:
+                        codec = _primary_codec(per)
+                        block_codecs = per
+                        blks = entropy.compress_blocks_per_codec(
+                            raws, per, level=params.zlib_level,
+                            parallel=params.parallel_entropy)
+                    else:
+                        codec = per[0]
+                        blks = entropy.compress_blocks(
+                            raws, codec=codec, level=params.zlib_level,
+                            parallel=params.parallel_entropy)
+                else:
+                    codec = entropy.resolve_codec(params.codec, raws,
+                                                  params.zlib_level)
+                    blks = entropy.compress_blocks(
+                        raws, codec=codec, level=params.zlib_level,
+                        parallel=params.parallel_entropy)
+            sp_ent.set(codec=codec, blocks=len(blks))
+        centers = round_centers(centers, curr.dtype)
+        if centers.size > enc.marker:
+            centers = centers[:enc.marker]
+        ratio = entropy_ratio(blks, raw_sizes)
+        bytes_in = int(np.asarray(raw_sizes).sum())
+        bytes_out = sum(len(b) for b in blks)
+        sp_fin.set(codec=codec, bytes_in=bytes_in, bytes_out=bytes_out)
     full_meta = StepMeta({"entropy_ratio": ratio, "zlib_ratio": ratio,
                           "entropy_codec": codec})
-    full_meta.update(meta or {})
+    full_meta.update(meta)
+    if telemetry.enabled():
+        # Canonical per-step rollup: one fixed key set whatever the driver
+        # or overlap mode (obs.report.STEP_TELEMETRY_KEYS).
+        device_entropy = enc.entropy_coded is not None
+        full_meta["telemetry"] = {
+            "analyze_s": float(drv_tele.get("analyze_s", 0.0)),
+            "encode_s": float(drv_tele.get("encode_s", 0.0)),
+            "exceptions_s": sp_exc.duration,
+            "entropy_s": (float(drv_tele.get("device_entropy_s", 0.0))
+                          if device_entropy else sp_ent.duration),
+            "finalize_s": sp_fin.duration,
+            "bytes_in": bytes_in, "bytes_out": bytes_out,
+            "entropy_ratio": ratio, "codec": codec,
+            "device_entropy": device_entropy,
+        }
     return CompressedStep(
         n=n, shape=tuple(curr.shape), dtype=str(curr.dtype),
         b_bits=enc.b_bits, error_bound=params.error_bound,
@@ -255,23 +288,41 @@ def finalize_step(curr: np.ndarray, enc: EncodedIndices,
         meta=full_meta)
 
 
+def anchor_telemetry(bytes_in: int, blks: List[bytes], codec: str,
+                     seconds: float) -> dict:
+    """The canonical ``meta["telemetry"]`` record of an anchor (or of one
+    rank's anchor fragment): the whole step is the entropy stage."""
+    bytes_out = sum(len(b) for b in blks)
+    return {"analyze_s": 0.0, "encode_s": 0.0, "exceptions_s": 0.0,
+            "entropy_s": seconds, "finalize_s": seconds,
+            "bytes_in": bytes_in, "bytes_out": bytes_out,
+            "entropy_ratio": bytes_in / max(bytes_out, 1), "codec": codec,
+            "device_entropy": False}
+
+
 def finalize_anchor(arr: np.ndarray, params: NumarckParams) -> CompressedStep:
     """Lossless anchor through the same entropy stage (codec-aware)."""
     arr = np.asarray(arr)
     flat = arr.reshape(-1)
     block_elems = max(1, params.block_bytes // flat.dtype.itemsize)
-    raws = [flat[s:e].tobytes() for s, e in block_slices(flat.size,
-                                                         block_elems)]
-    codec = entropy.resolve_codec(params.codec, raws, params.zlib_level)
-    blks = entropy.compress_blocks(raws, codec=codec,
-                                   level=params.zlib_level,
-                                   parallel=params.parallel_entropy)
+    with telemetry.span("finalize.anchor", n=arr.size) as sp:
+        raws = [flat[s:e].tobytes() for s, e in block_slices(flat.size,
+                                                             block_elems)]
+        codec = entropy.resolve_codec(params.codec, raws, params.zlib_level)
+        blks = entropy.compress_blocks(raws, codec=codec,
+                                       level=params.zlib_level,
+                                       parallel=params.parallel_entropy)
+        sp.set(codec=codec)
+    meta: dict = {"kind": "anchor"}
+    if telemetry.enabled():
+        meta["telemetry"] = anchor_telemetry(arr.size * flat.dtype.itemsize,
+                                             blks, codec, sp.duration)
     return CompressedStep(
         n=arr.size, shape=tuple(arr.shape), dtype=str(arr.dtype),
         b_bits=0, error_bound=params.error_bound, strategy=params.strategy,
         reference=params.reference, domain_lo=0.0, bin_width=0.0,
         centers=np.zeros(0), block_elems=block_elems, codec=codec,
-        index_blocks=blks, meta={"kind": "anchor"})
+        index_blocks=blks, meta=meta)
 
 
 def reconstruct_from_indices(prev: np.ndarray, enc: EncodedIndices,
@@ -303,4 +354,5 @@ __all__ = ["StepMeta", "EncodedIndices", "DeviceEncoded", "block_slices",
            "topk_centers", "round_centers", "split_packed",
            "pack_blocks_host", "exception_offsets", "exception_table",
            "entropy_ratio", "finalize_step", "finalize_anchor",
+           "anchor_telemetry",
            "reconstruct_from_indices", "reconstruction_dtype"]

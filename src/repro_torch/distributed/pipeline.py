@@ -28,6 +28,11 @@ advanced per shard by the dequantize kernel (``_ShardedDeviceChain``).
 Blobs are byte-identical to the reference's sharded driver, and to the
 single-device driver wherever ``block_elems(B)`` fits in a shard (else
 blocks shrink to ``ln // 32 * 32``, as in the reference).
+
+Telemetry: the reference's ``encode.*``, ``finalize.*`` and ``decode.*``
+spans and ``meta["telemetry"]`` records, with the single-device driver's
+key set (``obs.report``); each device stage ends in a synchronize of
+every shard's card only while telemetry is enabled.
 """
 from __future__ import annotations
 
@@ -54,6 +59,7 @@ from repro_torch.faults import inject
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import rans
 from repro_torch.kernels.dequant import patch_exceptions
+from repro_torch.obs import telemetry
 
 
 def _on(dev: torch.device):
@@ -62,6 +68,12 @@ def _on(dev: torch.device):
     if dev.type == "cuda":
         return torch.cuda.device(dev)
     return contextlib.nullcontext()
+
+
+def _sync(devices: Sequence[torch.device]) -> None:
+    """End a device stage under telemetry on every shard's card."""
+    for d in set(devices):
+        comp._sync(d)
 
 
 def _check_devices(devices) -> List[torch.device]:
@@ -109,8 +121,8 @@ class _ShardOut:
     g0: int                      # first owned global block
     nown: int                    # number of owned blocks
     owned: torch.Tensor          # (nown * be,) indices of the owned blocks
-    exc_pos: np.ndarray          # global marker positions < n, ascending
-    exc_counts: np.ndarray       # markers per owned block
+    exc_pos: Optional[np.ndarray] = None     # global marker positions < n
+    exc_counts: Optional[np.ndarray] = None  # markers per owned block
 
 
 class ShardedCompressor:
@@ -207,8 +219,8 @@ class ShardedCompressor:
 
     def _encode_shards(self, bin_ids, ids_desc, lay: _Layout,
                        k_eff: int) -> List[_ShardOut]:
-        """Phases 3-4: indices per shard, the edge exchange, each shard's
-        owned blocks and the markers in them."""
+        """Phases 3-4: indices per shard, the edge exchange and each
+        shard's owned blocks."""
         p, g = self.params, self.group
         marker = (1 << lay.b_bits) - 1
         idx_sh = []
@@ -226,15 +238,21 @@ class ShardedCompressor:
             g0, g1 = lay.first_block(s), lay.first_block(s + 1)
             ext = torch.cat([idx, edge])
             start = g0 * lay.be - s * lay.ln
-            owned = ext[start:start + (g1 - g0) * lay.be]
-            pos = torch.nonzero(owned == marker).reshape(-1).cpu().numpy()
-            pos = pos.astype(np.int64) + g0 * lay.be
-            pos = pos[pos < lay.n]
-            counts = np.bincount((pos - g0 * lay.be) // lay.be,
-                                 minlength=g1 - g0).astype(np.int64)
-            outs.append(_ShardOut(idx=idx, g0=g0, nown=g1 - g0, owned=owned,
-                                  exc_pos=pos, exc_counts=counts))
+            outs.append(_ShardOut(idx=idx, g0=g0, nown=g1 - g0,
+                                  owned=ext[start:start + (g1 - g0) * lay.be]))
         return outs
+
+    @staticmethod
+    def _exceptions(outs: List[_ShardOut], lay: _Layout) -> None:
+        """The markers in each shard's owned blocks: global positions below
+        n, ascending, and their count per block."""
+        marker = (1 << lay.b_bits) - 1
+        for o in outs:
+            pos = torch.nonzero(o.owned == marker).reshape(-1).cpu().numpy()
+            pos = pos.astype(np.int64) + o.g0 * lay.be
+            o.exc_pos = pos[pos < lay.n]
+            o.exc_counts = np.bincount((o.exc_pos - o.g0 * lay.be) // lay.be,
+                                       minlength=o.nown).astype(np.int64)
 
     def _pack(self, outs: List[_ShardOut], lay: _Layout) -> List[bytes]:
         """Phase 5: one bit-pack launch per shard over its owned blocks;
@@ -267,7 +285,8 @@ class ShardedCompressor:
     def _encode_common(self, prev, curr: np.ndarray,
                        b_bits: Optional[int]):
         """Phases 1-4 for one step; prev is a host array or the sharded
-        chain state (a list of padded per-shard tensors)."""
+        chain state (a list of padded per-shard tensors).  Also returns
+        the stage seconds (zero with telemetry off)."""
         p = self.params
         curr = np.asarray(curr)
         n = curr.size
@@ -282,12 +301,23 @@ class ShardedCompressor:
         else:
             prev_sh = self._scatter(np.asarray(prev).reshape(-1), ln)
         curr_sh = self._scatter(curr.reshape(-1), ln)
-        a = self._analyze(prev_sh, curr_sh, n, curr.dtype.itemsize)
+        tele = telemetry.enabled()
+        with telemetry.span("encode.analyze", annotate=True, n=n) as sp_an:
+            a = self._analyze(prev_sh, curr_sh, n, curr.dtype.itemsize)
+            if tele:
+                _sync(self.devices)
         bb = int(b_bits if b_bits is not None
                  else (p.b_bits if p.b_bits is not None else a["b_auto"]))
         k_eff = min((1 << bb) - 1, p.max_bins)
         lay = self._layout(n, bb)
-        outs = self._encode_shards(a["bin_ids"], a["ids_desc"], lay, k_eff)
+        with telemetry.span("encode.index", annotate=True,
+                            b_bits=bb) as sp_idx:
+            outs = self._encode_shards(a["bin_ids"], a["ids_desc"], lay,
+                                       k_eff)
+            if tele:
+                _sync(self.devices)
+        with telemetry.span("encode.exceptions") as sp_exc:
+            self._exceptions(outs, lay)
         centers = pipe.topk_centers(a["ids_desc"][:k_eff].cpu().numpy(),
                                     k_eff, float(a["domain_lo"]),
                                     float(a["width"]))
@@ -295,30 +325,45 @@ class ShardedCompressor:
         meta = {"b_auto": int(a["b_auto"]),
                 "est_sizes": a["est_sizes"].numpy().tolist(),
                 "n_shards": self.n_shards, "pipeline": self._pipeline}
-        return a, lay, outs, centers, meta, curr_sh
+        stage_s = {"analyze_s": sp_an.duration,
+                   "encode_s": sp_idx.duration + sp_exc.duration}
+        return a, lay, outs, centers, meta, curr_sh, stage_s
 
     def _device_encode(self, prev, curr: np.ndarray,
                        b_bits: Optional[int] = None) -> DeviceEncoded:
         """Phases 1-5 on the shards; the pre-entropy encode result that
         the finalize and the reference chain consume."""
-        a, lay, outs, centers, meta, curr_sh = self._encode_common(
+        a, lay, outs, centers, meta, curr_sh, stage_s = self._encode_common(
             prev, curr, b_bits)
         raws = coded = coded_name = None
-        if comp.device_entropy_route(self.params, lay.n, lay.b_bits):
-            coded = self._entropy_stage(outs, lay)
-            coded_name = self.params.codec
-        else:
-            raws = self._pack(outs, lay)
+        with telemetry.span("encode.device_entropy", annotate=True) as sp_de:
+            if comp.device_entropy_route(self.params, lay.n, lay.b_bits):
+                coded = self._entropy_stage(outs, lay)
+                coded_name = self.params.codec
+        pack_s = 0.0
+        if coded is None:
+            with telemetry.span("encode.pack_fetch") as sp_pack:
+                raws = self._pack(outs, lay)
+            pack_s = sp_pack.duration
         host_chain = (self._chain is not None
                       and self._chain.residency == chainmod.CHAIN_HOST)
-        idx = None
-        if host_chain:
-            idx = torch.cat([o.idx.cpu() for o in outs]).numpy()[:lay.n]
+        with telemetry.span("encode.idx_fetch") as sp_fetch:
+            idx = None
+            if host_chain:
+                idx = torch.cat([o.idx.cpu() for o in outs]).numpy()[:lay.n]
         enc = pipe.EncodedIndices(
             idx=idx, b_bits=lay.b_bits, block_elems=lay.be, n=lay.n,
             packed=raws, entropy_coded=coded, entropy_codec=coded_name,
             exc_positions=np.concatenate([o.exc_pos for o in outs]),
             exc_block_counts=np.concatenate([o.exc_counts for o in outs]))
+        if telemetry.enabled():
+            # The single-device driver's keys; finalize_step folds them
+            # into the canonical per-step record.
+            meta["telemetry"] = {
+                "analyze_s": stage_s["analyze_s"],
+                "encode_s": stage_s["encode_s"] + pack_s + sp_fetch.duration,
+                "device_entropy_s": sp_de.duration,
+            }
         return DeviceEncoded(enc=enc, centers=centers,
                              domain_lo=float(a["domain_lo"]),
                              width=float(a["width"]), meta=meta,
@@ -499,32 +544,51 @@ class ShardedDecompressor:
             return comp.decode_anchor(step, self.devices[0])
         if prev is None:
             raise ValueError("non-anchor steps need the previous state")
+        tele = telemetry.enabled()
         cdt = pipe.reconstruction_dtype(step.dtype)
         tdt = comp._torch_dtype(cdt)
         marker = (1 << step.b_bits) - 1
         prev_flat = np.asarray(prev).reshape(-1).astype(cdt, copy=False)
-        parts = self._index_shards(step)
-        counts = [int((idx == marker).sum()) for _, idx in parts]
-        offs = coll.exclusive_scan_sum(counts, self.group)
-        values = torch.from_numpy(np.asarray(step.incomp_values, cdt))
-        out = []
-        for d, (start, idx), off, cnt in zip(self.devices, parts, offs,
-                                             counts):
-            if not idx.numel():
-                continue
-            prev_l = torch.from_numpy(
-                prev_flat[start:start + idx.numel()].copy()).to(d)
-            centers = torch.tensor(step.centers, device=d).to(tdt)
-            with _on(d):
-                recon = kops.dequantize(idx.contiguous(), prev_l, centers,
-                                        b_bits=step.b_bits)
-            if cnt:
-                recon = patch_exceptions(recon, idx,
-                                         values[off:off + cnt].to(d),
-                                         b_bits=step.b_bits)
-            out.append(recon.cpu())
-        res = torch.cat(out).numpy()
-        return res.astype(step.dtype).reshape(step.shape)
+        with telemetry.span("decode.entropy", annotate=True) as sp_e:
+            parts = self._index_shards(step)
+            if tele:
+                _sync(self.devices)
+        with telemetry.span("decode.dequant", annotate=True) as sp_d:
+            recon = []
+            for d, (start, idx) in zip(self.devices, parts):
+                if not idx.numel():
+                    recon.append(None)
+                    continue
+                prev_l = torch.from_numpy(
+                    prev_flat[start:start + idx.numel()].copy()).to(d)
+                centers = torch.tensor(step.centers, device=d).to(tdt)
+                with _on(d):
+                    recon.append(kops.dequantize(idx.contiguous(), prev_l,
+                                                 centers,
+                                                 b_bits=step.b_bits))
+            if tele:
+                _sync(self.devices)
+        with telemetry.span("decode.patch", annotate=True) as sp_p:
+            counts = [int((idx == marker).sum()) for _, idx in parts]
+            offs = coll.exclusive_scan_sum(counts, self.group)
+            values = torch.from_numpy(np.asarray(step.incomp_values, cdt))
+            for j, ((_, idx), off, cnt) in enumerate(zip(parts, offs,
+                                                        counts)):
+                if cnt:
+                    recon[j] = patch_exceptions(
+                        recon[j], idx, values[off:off + cnt].to(idx.device),
+                        b_bits=step.b_bits)
+            if tele:
+                _sync(self.devices)
+        with telemetry.span("decode.fetch", annotate=True) as sp_f:
+            res = torch.cat([r.cpu() for r in recon if r is not None]).numpy()
+            res = res.astype(step.dtype).reshape(step.shape)
+        if tele:
+            comp._record_read(step, entropy_s=sp_e.duration,
+                              dequant_s=sp_d.duration, patch_s=sp_p.duration,
+                              fetch_s=sp_f.duration,
+                              device=comp.device_decode_route(step))
+        return res
 
     def decompress_series(self, steps: Sequence[CompressedStep]
                           ) -> List[np.ndarray]:
@@ -583,10 +647,17 @@ class MultiProcessCompressor(ShardedCompressor):
     def _device_encode_local(self, prev, curr: np.ndarray):
         """Phases 1-5 over every process's shards; this process keeps
         only its own packed blocks and exceptions."""
-        a, lay, outs, centers, meta, curr_sh = self._encode_common(
+        a, lay, outs, centers, meta, curr_sh, stage_s = self._encode_common(
             prev, curr, None)
         meta.update(rank=self.rank, num_ranks=self.num_ranks)
-        local = {"raws": self._pack(outs, lay),
+        with telemetry.span("encode.pack_fetch") as sp_pack:
+            raws = self._pack(outs, lay)
+        if telemetry.enabled():
+            meta["telemetry"] = {
+                "analyze_s": stage_s["analyze_s"],
+                "encode_s": stage_s["encode_s"] + sp_pack.duration,
+            }
+        local = {"raws": raws,
                  "block_start": outs[0].g0, "nblocks": lay.nblocks,
                  "exc_pos": np.concatenate([o.exc_pos for o in outs]),
                  "exc_counts": np.concatenate([o.exc_counts for o in outs])}
@@ -607,31 +678,41 @@ class MultiProcessCompressor(ShardedCompressor):
         curr = np.asarray(curr)
         bb, be, n = dev.enc.b_bits, dev.enc.block_elems, int(dev.enc.n)
         marker = (1 << bb) - 1
-        values = curr.reshape(-1)[local["exc_pos"]].astype(curr.dtype,
-                                                           copy=False)
-        raws = local["raws"]
-        block_codecs: Optional[List[str]] = None
-        if p.codec == entropy.AUTO_CODEC and len(raws) > 1:
-            per = entropy.choose_block_codecs(raws, p.zlib_level)
-            if len(set(per)) > 1:
-                codec = pipe._primary_codec(per)
-                block_codecs = per
-                blks = entropy.compress_blocks_per_codec(
-                    raws, per, level=p.zlib_level,
-                    parallel=p.parallel_entropy)
-            else:
-                codec = per[0]
-                blks = entropy.compress_blocks(raws, codec=codec,
-                                               level=p.zlib_level,
-                                               parallel=p.parallel_entropy)
-        else:
-            codec = entropy.resolve_codec(p.codec, raws, p.zlib_level)
-            blks = entropy.compress_blocks(raws, codec=codec,
-                                           level=p.zlib_level,
-                                           parallel=p.parallel_entropy)
-        centers = dev.centers
-        if centers.size > marker:
-            centers = centers[:marker]
+        meta = dict(dev.meta)
+        drv_tele = meta.pop("telemetry", None) or {}
+        with telemetry.span("finalize", n=n, b_bits=bb) as sp_fin:
+            with telemetry.span("finalize.exceptions") as sp_exc:
+                values = curr.reshape(-1)[local["exc_pos"]].astype(
+                    curr.dtype, copy=False)
+            raws = local["raws"]
+            block_codecs: Optional[List[str]] = None
+            with telemetry.span("finalize.entropy") as sp_ent:
+                if p.codec == entropy.AUTO_CODEC and len(raws) > 1:
+                    per = entropy.choose_block_codecs(raws, p.zlib_level)
+                    if len(set(per)) > 1:
+                        codec = pipe._primary_codec(per)
+                        block_codecs = per
+                        blks = entropy.compress_blocks_per_codec(
+                            raws, per, level=p.zlib_level,
+                            parallel=p.parallel_entropy)
+                    else:
+                        codec = per[0]
+                        blks = entropy.compress_blocks(
+                            raws, codec=codec, level=p.zlib_level,
+                            parallel=p.parallel_entropy)
+                else:
+                    codec = entropy.resolve_codec(p.codec, raws,
+                                                  p.zlib_level)
+                    blks = entropy.compress_blocks(
+                        raws, codec=codec, level=p.zlib_level,
+                        parallel=p.parallel_entropy)
+                sp_ent.set(codec=codec, blocks=len(blks))
+            centers = dev.centers
+            if centers.size > marker:
+                centers = centers[:marker]
+            bytes_in = sum(len(r) for r in raws)
+            bytes_out = sum(len(b) for b in blks)
+            sp_fin.set(codec=codec, bytes_in=bytes_in, bytes_out=bytes_out)
         info = dict(
             total_data_num=n, shape=list(curr.shape), dtype=str(curr.dtype),
             bin_centers_number=int(centers.size), elements_per_block=be,
@@ -645,7 +726,18 @@ class MultiProcessCompressor(ShardedCompressor):
             centers=centers if self.rank == 0 else None,
             incomp_values=values, incomp_block_counts=local["exc_counts"],
             block_codecs=block_codecs)
-        frag.meta = dict(dev.meta)
+        if telemetry.enabled():
+            meta["telemetry"] = {
+                "analyze_s": float(drv_tele.get("analyze_s", 0.0)),
+                "encode_s": float(drv_tele.get("encode_s", 0.0)),
+                "exceptions_s": sp_exc.duration,
+                "entropy_s": sp_ent.duration,
+                "finalize_s": sp_fin.duration,
+                "bytes_in": bytes_in, "bytes_out": bytes_out,
+                "entropy_ratio": bytes_in / max(bytes_out, 1),
+                "codec": codec, "device_entropy": False,
+            }
+        frag.meta = meta
         return frag
 
     def _anchor_fragment(self, arr: np.ndarray) -> StepFragment:
@@ -660,18 +752,25 @@ class MultiProcessCompressor(ShardedCompressor):
         nb = len(slices)
         g_lo = self.rank * nb // self.num_ranks
         g_hi = (self.rank + 1) * nb // self.num_ranks
-        raws = [flat[s:e].tobytes() for s, e in slices[g_lo:g_hi]]
-        codec = entropy.resolve_codec(p.codec, raws, p.zlib_level)
-        blks = entropy.compress_blocks(raws, codec=codec, level=p.zlib_level,
-                                       parallel=p.parallel_entropy)
+        with telemetry.span("finalize.anchor", n=arr.size) as sp:
+            raws = [flat[s:e].tobytes() for s, e in slices[g_lo:g_hi]]
+            codec = entropy.resolve_codec(p.codec, raws, p.zlib_level)
+            blks = entropy.compress_blocks(raws, codec=codec,
+                                           level=p.zlib_level,
+                                           parallel=p.parallel_entropy)
+            sp.set(codec=codec)
         info = dict(
             total_data_num=arr.size, shape=list(arr.shape),
             dtype=str(arr.dtype), bin_centers_number=0,
             elements_per_block=be_a, B=0, error_bound=p.error_bound,
             strategy=p.strategy, reference=p.reference, domain_lo=0.0,
             bin_width=0.0, is_anchor=True, n_blocks=nb, codec=codec)
-        return StepFragment(is_anchor=True, block_start=g_lo, info=info,
+        frag = StepFragment(is_anchor=True, block_start=g_lo, info=info,
                             index_blocks=blks)
+        if telemetry.enabled():
+            frag.meta["telemetry"] = pipe.anchor_telemetry(
+                sum(len(r) for r in raws), blks, codec, sp.duration)
+        return frag
 
     # ------------------------------------------------- temporal streaming
     def add_fragment_async(self, arr: np.ndarray) -> "Future[StepFragment]":

@@ -242,7 +242,8 @@ def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch, repro_torch.core.compress, "
             "repro_torch.kernels.ops, repro_torch.interop, "
             "repro_torch.distributed.pipeline, "
-            "repro_torch.launch.distributed\n"
+            "repro_torch.launch.distributed, repro_torch.obs, "
+            "repro_torch.checkpoint\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
