@@ -49,7 +49,16 @@ Phases, each fatal on failure (exit code 1, no result line):
               kernels 1-4 once per lossy tensor per delta save), step
               files equal to a host chain's, restore onto a "meta"
               template, and a walk-back past a flipped byte.
-  10. kernels each kernel against its plain version on the card, exactly,
+  10. serve   the dense GQA model and the serving engine at Llama-3.2-1B's
+              full width (bf16, seeded random weights made on the card): 4
+              requests of 256 prompt tokens, 32 new and 32 resumed.  Greedy
+              tokens equal across generate + save_session + load_session +
+              resume (zlib, rans) and an uninterrupted run; restored leaves
+              bit-exact, also loaded on the CPU; load_session launches the
+              rANS decode kernel once per v1 group of each leaf on the
+              device route (rans) and no kernel with zlib; bf16 logits
+              against f32 and decode_step against prefill at cosine >= 0.99.
+  11. kernels each kernel against its plain version on the card, exactly,
               at n = 42*360*240 (the CMIP step) and n = 2^26, with timings
               (median of 20 launches, CUDA events, after warm-up) beside
               the bound the card's memory and arithmetic rates set.  The
@@ -1432,6 +1441,239 @@ def checkpoint_phase(torch, np, dev, launches: dict) -> None:
         f"within E / (1 + r)); {card}")
 
 
+# Llama-3.2-1B (src/repro_torch/configs/llama3_2_1b.py) served at full width:
+# SERVE_BATCH requests of SERVE_PROMPT tokens, SERVE_NEW new tokens, then
+# SERVE_NEW resumed ones.
+SERVE_ARCH = "llama3.2-1b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 256, 32
+COS_MIN = 0.99                     # logits' cosine similarity, every position
+
+
+def serve_config():
+    from repro_torch.configs import get_config
+    return get_config(SERVE_ARCH)
+
+
+def same_bits(torch, a, b) -> bool:
+    """Bit equality of two tensors (bf16 through an int16 view)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return torch.equal(a.cpu(), b.cpu())
+
+
+def cosines(torch, a, b):
+    """Cosine similarity of two logits tensors at every position."""
+    a = a.reshape(-1, a.shape[-1]).double()
+    b = b.reshape(-1, b.shape[-1]).double()
+    return (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
+
+
+def serve_phase(torch, np, dev, launches: dict) -> dict:
+    """The dense GQA model and the serving engine at Llama-3.2-1B's full
+    width (16 layers, the 128,256 x 2048 tied embedding, bf16, seeded
+    random weights made on the card).  Greedy tokens of an uninterrupted
+    generate equal generate + save_session + load_session (a new engine)
+    + resume, with zlib and with rANS; every restored leaf equals the
+    saved one bit for bit; load_session launches rans_decode once per
+    (length, lanes) group of v1 blobs of each leaf on the device route
+    and no other kernel (none with zlib); the card's file loads on the
+    CPU to the same bytes; bf16 prefill logits against the same weights
+    in f32, and decode_step at T against prefill of T + 1, at cosine
+    >= COS_MIN at every position.  Times prefill, decode, save and load,
+    and the port's chunked_sdpa against torch's SDPA on the prefill's
+    shapes (a yardstick; the port never calls SDPA)."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.core.container import NCKReader
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import Engine, load_cache
+
+    card = card_line()
+    cfg = serve_config()
+    model = Model(cfg)
+    B, T, NEW = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    s_max = T + 2 * NEW
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, T)).astype(np.int32)
+    kv_bytes = (2 * cfg.n_layers * B * s_max * cfg.n_kv_heads * cfg.head_dim
+                * 2)
+    log(f"serve: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}: {n_params} "
+        f"parameters, {w_bytes / 1e9:.3f} GB, made on the card in "
+        f"{init_s:.1f} s; {B} requests x {T} prompt tokens, s_max {s_max}, "
+        f"KV cache {kv_bytes / 1e6:.1f} MB")
+
+    # Uninterrupted: 2 * NEW tokens (the reference stream), then the
+    # timed warm prefill and decode, then one prefill and 8 decode steps
+    # under torch.profiler for the device idle share.
+    eng = Engine(model, params, B, s_max, keep_session=True, device=dev)
+    full = eng.generate(prompts, max_new=2 * NEW)
+    eng.stats = type(eng.stats)()
+    warm = eng.generate(prompts, max_new=NEW)
+    if not np.array_equal(warm, full[:, :NEW]):
+        raise AssertionError("serve: a second generate gave other tokens")
+    st = eng.stats
+    times = {"prefill_ms": st.prefill_s * 1e3,
+             "decode_ms_per_token": st.decode_s / NEW * 1e3,
+             "tokens_per_s": st.tokens_per_s, "save_ms": {}, "load_ms": {}}
+    OUT.mkdir(exist_ok=True)
+    times["idle_share"] = {}
+    for w, fn in (("prefill", lambda: eng.generate(prompts, max_new=0)),
+                  ("decode", lambda: eng.resume(max_new=8))):
+        tpath = str(OUT / f"profile_serve_{w}.json")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function(f"chip_smoke.{w}"):
+                fn()
+        prof.export_chrome_trace(tpath)
+        share = idle_share(tpath, f"chip_smoke.{w}")
+        with open(tpath, "rb") as f, gzip.open(tpath + ".gz", "wb") as g:
+            shutil.copyfileobj(f, g)
+        os.remove(tpath)
+        times["idle_share"][w] = share["idle_share"]
+        log(f"device idle share, serve {w}: {share['idle_share']:.4f} of a "
+            f"{share['window_ms']:.1f} ms window (kernels busy "
+            f"{share['kernel_busy_ms']:.2f} ms in {share['kernels']} "
+            f"kernels); top kernels ms {json.dumps(share['top_kernels_ms'])}"
+            f"; trace {tpath}.gz; {card}")
+    del eng
+
+    tmp = tempfile.mkdtemp()
+    for codec in ("zlib", "rans"):
+        saver = Engine(model, params, B, s_max, keep_session=True,
+                       device=dev)
+        first = saver.generate(prompts, max_new=NEW)
+        path = os.path.join(tmp, f"session_{codec}.nck")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats, got = counted(torch, ops.KERNELS,
+                             lambda: saver.save_session(path, codec=codec))
+        times["save_ms"][codec] = (time.perf_counter() - t0) * 1e3
+        check_counts(f"serve save {codec}", got, {})
+        saved = saver._session.to_host()
+        del saver
+        eng = Engine(model, params, B, s_max, device=dev)
+        eng.generate(prompts, max_new=1)            # records the template
+        r = NCKReader(path)
+        steps = [r.read_step(v) for v in r.step_names()]
+        t0 = time.perf_counter()
+        _, got = counted(torch, ops.KERNELS, lambda: eng.load_session(path))
+        times["load_ms"][codec] = (time.perf_counter() - t0) * 1e3
+        want = read_launches(steps)
+        check_counts(f"serve load {codec}", got, want)
+        if codec == "rans" and not want["rans_decode"]:
+            raise AssertionError("serve rans: no leaf took the decode "
+                                 "kernel's route")
+        launches[f"serve load {codec}"] = got
+        restored = dict(tree_items(eng._session.tree))
+        for key, leaf in tree_items(saved):
+            if not same_bits(torch, restored[key], leaf):
+                raise AssertionError(f"serve {codec}: restored leaf {key} "
+                                     "differs from the saved one")
+            if restored[key].device != params.embed.device:
+                raise AssertionError(f"serve {codec}: {key} restored on "
+                                     f"{restored[key].device}")
+        cpu = dict(tree_items(load_cache(path, device="cpu")))
+        for key, leaf in tree_items(saved):
+            if not same_bits(torch, cpu[key], leaf):
+                raise AssertionError(f"serve {codec}: the CPU load of {key} "
+                                     "differs")
+        rest = eng.resume(max_new=NEW)
+        if not np.array_equal(np.concatenate([first, rest], axis=1), full):
+            raise AssertionError(f"serve {codec}: generate + save + load + "
+                                 "resume differs from the uninterrupted "
+                                 "stream")
+        log(f"serve {codec}: {stats['orig_bytes']} bytes -> "
+            f"{stats['comp_bytes']} ({stats['orig_bytes'] / stats['comp_bytes']:.3f}"
+            f"x), save_session {times['save_ms'][codec]:.1f} ms, "
+            f"load_session {times['load_ms'][codec]:.1f} ms, launches "
+            f"{json.dumps(got)}; restored bit-exact, the CPU load too; "
+            f"resume equal to the uninterrupted {2 * NEW} tokens")
+        del eng
+    shutil.rmtree(tmp)
+
+    # Numerics: bf16 against the same weights in f32, full-sequence logits.
+    tokens = torch.from_numpy(prompts.astype(np.int64)).to(dev)
+    logits16, _ = lm.forward(params, cfg, tokens)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = copy.deepcopy(params).to(torch.float32)
+    logits32, _ = lm.forward(params32, cfg32, tokens)
+    cos = cosines(torch, logits16, logits32)
+    num = {"cos_min_bf16_vs_f32": float(cos.min()),
+           "max_abs_diff_bf16_vs_f32": float(
+               (logits16 - logits32).abs().max())}
+    del params32, logits32, logits16
+    if num["cos_min_bf16_vs_f32"] < COS_MIN:
+        raise AssertionError(f"serve numerics: bf16 against f32 logits, "
+                             f"cosine {num['cos_min_bf16_vs_f32']:.5f}")
+    # Teacher forcing: decode_step at T after a prefill of T tokens
+    # against the last position of a prefill of T + 1.
+    nxt = torch.from_numpy(full[:, :1].astype(np.int64)).to(dev)
+    _, cache, pos = lm.prefill(params, cfg, tokens, s_max=s_max)
+    step_logits, _ = lm.decode_step(params, cfg, cache, nxt, pos)
+    pre_logits, _, _ = lm.prefill(params, cfg,
+                                  torch.cat([tokens, nxt], dim=1),
+                                  s_max=s_max)
+    cos = cosines(torch, step_logits, pre_logits)
+    num["cos_min_decode_vs_prefill"] = float(cos.min())
+    num["max_abs_diff_decode_vs_prefill"] = float(
+        (step_logits - pre_logits).abs().max())
+    if num["cos_min_decode_vs_prefill"] < COS_MIN:
+        raise AssertionError(f"serve numerics: decode_step against prefill, "
+                             f"cosine {num['cos_min_decode_vs_prefill']:.5f}")
+    del cache
+
+    # The port's chunked_sdpa against torch's SDPA on the prefill's shapes.
+    gen = torch.Generator(device=dev).manual_seed(2)
+    dt = L.cdtype(cfg)
+    q = torch.randn((B, T, cfg.n_heads, cfg.head_dim), generator=gen,
+                    device=dev).to(dt)
+    k = torch.randn((B, T, cfg.n_kv_heads, cfg.head_dim), generator=gen,
+                    device=dev).to(dt)
+    v = torch.randn(k.shape, generator=gen, device=dev).to(dt)
+    positions = torch.arange(T, dtype=torch.int32, device=dev)
+    rep = cfg.n_heads // cfg.n_kv_heads
+
+    def ours():
+        return L.chunked_sdpa(q, k, v, q_pos=positions, kv_pos=positions,
+                              n_rep=rep, block_skip=True)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    with L.matmul_numerics():
+        times["chunked_sdpa_ms"] = time_ms(torch, ours)
+        times["sdpa_ms"] = time_ms(torch, sdpa)
+        num["max_abs_diff_chunked_vs_sdpa"] = float(
+            (ours().float() - sdpa().float()).abs().max())
+    out = dict(arch=cfg.name, params=n_params, weight_bytes=w_bytes,
+               batch=B, prompt=T, new=NEW, s_max=s_max, kv_bytes=kv_bytes,
+               **times, **num,
+               peak_device_bytes=torch.cuda.max_memory_allocated(),
+               phase_s=time.perf_counter() - t_phase, card=card)
+    log("serve " + json.dumps(out))
+    return out
+
+
 def run(torch, np) -> dict:
     from repro_torch import compress_series, decompress_series, interop
     from repro_torch.core import compress, packing, ratios
@@ -1603,7 +1845,10 @@ def run(torch, np) -> dict:
     # -- 9. the checkpoint manager ----------------------------------------
     checkpoint_phase(torch, np, dev, launches)
 
-    # -- 10. each kernel against its plain version, timed ------------------
+    # -- 10. the model and the serving engine -------------------------------
+    serve_phase(torch, np, dev, launches)
+
+    # -- 11. each kernel against its plain version, timed ------------------
     log_clocks("before the kernel phase")
     prev_big, curr_big = big_pair(np, N_BIG)
     pairs = {"cmip": (data["cmip"][0].reshape(-1), data["cmip"][1].reshape(-1)),

@@ -11,8 +11,11 @@ ndarrays or scalars -- a ``state_dict()`` is one.  A leaf's key is the
 ``/``-joined path the reference forms from jax's tree paths (dict keys,
 sequence indices as numbers), and the step file holds the leaves in the
 sorted order of those keys, so the same tree as numpy arrays gives the
-reference's step files and ``MANIFEST.json`` byte for byte.  bfloat16
-leaves are refused (the reference stores them as ml_dtypes arrays).
+reference's step files and ``MANIFEST.json`` byte for byte.  A
+bfloat16 leaf (a tensor, or an ml_dtypes array) is a lossless anchor
+recording ``dtype="bfloat16"`` over its 2-byte values, as the reference
+stores it; the port holds those bytes as uint16 and never needs
+ml_dtypes.
 
 Layout:
     <dir>/step_000123.nck      one NCK container per step (all tensors)
@@ -45,42 +48,27 @@ from repro_torch.core.compress import (decode_anchor, decompress_step,
                                        encode_device, make_anchor)
 from repro_torch.core.container import NCKReader, NCKWriter
 from repro_torch.core.overlap import FinalizeQueue
-from repro_torch.core.types import NumarckParams
+from repro_torch.core.tree import leaves_with_keys, nest
+from repro_torch.core.types import (NumarckParams, host_storage,
+                                    storage_tensor)
 from repro_torch.obs import telemetry
 
 
-def _leaves(tree, path: Tuple[str, ...] = ()):
-    """(key, leaf) of every leaf, the key the reference's ``_flatten``
-    forms; ``None`` is an empty subtree, as in jax."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k], path + (str(k),))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _leaves(v, path + (str(i),))
-    elif tree is not None:
-        yield "/".join(path), tree
-
-
-def _flatten(tree, snapshot: bool = False) -> Dict[str, np.ndarray]:
-    """Host copy of a tree.  `snapshot=True` forces a private copy of
-    leaves that live in host memory (async saves read the arrays on
-    another thread after the caller may have mutated them in place; a
-    CPU tensor's ``.numpy()`` shares its memory)."""
-    flat = {}
-    for key, leaf in _leaves(tree):
-        if isinstance(leaf, torch.Tensor):
-            if leaf.dtype == torch.bfloat16:
-                raise TypeError(f"checkpoint leaf {key!r} is bfloat16, which "
-                                "the port does not store; cast it to "
-                                "float32 first")
-            on_host = leaf.device.type == "cpu"
-            arr = leaf.detach().cpu().numpy()
-        else:
-            on_host = isinstance(leaf, np.ndarray)
-            arr = np.asarray(leaf)
+def _flatten(tree, snapshot: bool = False
+             ) -> Tuple[Dict[str, np.ndarray], Dict[str, str]]:
+    """Host copy of a tree: each leaf's bytes in its storage dtype
+    (bfloat16 as uint16) and each leaf's recorded dtype name.
+    `snapshot=True` forces a private copy of leaves that live in host
+    memory (async saves read the arrays on another thread after the
+    caller may have mutated them in place; a CPU tensor's ``.numpy()``
+    shares its memory)."""
+    flat, dtypes = {}, {}
+    for key, leaf in leaves_with_keys(tree):
+        on_host = (leaf.device.type == "cpu" if isinstance(leaf, torch.Tensor)
+                   else isinstance(leaf, np.ndarray))
+        arr, dtypes[key] = host_storage(leaf)
         flat[key] = np.array(arr, copy=True) if snapshot and on_host else arr
-    return flat
+    return flat, dtypes
 
 
 class CheckpointManager:
@@ -152,11 +140,12 @@ class CheckpointManager:
         completes).  `wait()` is the barrier.
         """
         blocking = (not self.async_save) if blocking is None else blocking
-        flat = _flatten(tree, snapshot=not blocking)  # caller-thread copy
+        # caller-thread copy
+        flat, dtypes = _flatten(tree, snapshot=not blocking)
         if blocking:
             self.wait()                  # keep manifest commit order
-            return self._save_inner(step, flat)
-        return self._q.submit(self._save_inner, step, flat,
+            return self._save_inner(step, flat, dtypes)
+        return self._q.submit(self._save_inner, step, flat, dtypes,
                               label=f"save step {step}")
 
     def wait(self):
@@ -178,12 +167,14 @@ class CheckpointManager:
         c.seed(arr)
         return c
 
-    def _save_inner(self, step: int, flat: Dict[str, np.ndarray]):
+    def _save_inner(self, step: int, flat: Dict[str, np.ndarray],
+                    dtypes: Dict[str, str]):
         with telemetry.span("ckpt.save", step=step,
                             tensors=len(flat)) as sp:
-            return self._save_body(step, flat, sp)
+            return self._save_body(step, flat, dtypes, sp)
 
-    def _save_body(self, step: int, flat: Dict[str, np.ndarray], sp):
+    def _save_body(self, step: int, flat: Dict[str, np.ndarray],
+                   dtypes: Dict[str, str], sp):
         is_anchor = (self._save_count % self.anchor_every == 0
                      or not self._recon_state)
         w = NCKWriter()
@@ -196,13 +187,15 @@ class CheckpointManager:
                 var = f"t{i:04d}"
                 names[var] = key
                 stats["orig_bytes"] += arr.nbytes
+                # bfloat16 (uint16 storage here, an ml_dtypes type in the
+                # reference) is not a numpy floating type: lossless.
                 lossless = (not self.compress or is_anchor
                             or any(s in key for s in self.exempt)
                             or not np.issubdtype(arr.dtype, np.floating)
                             or arr.size < 4096
                             or key not in self._recon_state)
                 if lossless:
-                    st = make_anchor(arr, self.params)
+                    st = make_anchor(arr, self.params, dtypes[key])
                     staged[key] = self._seeded_chain(arr)
                 else:
                     # Encode against the chain state and advance a *fork*
@@ -278,33 +271,39 @@ class CheckpointManager:
         self._write_manifest(m)
 
     # ------------------------------------------------------------- restore
-    def _load_flat(self, upto_step: int, m: Dict) -> Dict[str, np.ndarray]:
-        """Replay anchors+deltas up to `upto_step` (inclusive)."""
+    def _load_flat(self, upto_step: int, m: Dict
+                   ) -> Tuple[Dict[str, np.ndarray], Dict[str, str]]:
+        """Replay anchors+deltas up to `upto_step` (inclusive): each
+        leaf's host array (bfloat16 as its uint16 storage) and recorded
+        dtype name."""
         anchors = [a for a in m.get("anchors", []) if a <= upto_step]
         if not anchors:
             raise FileNotFoundError("no anchor at or before requested step")
         start = max(anchors)
         chain = [s for s in m["steps"] if start <= s <= upto_step]
         state: Dict[str, np.ndarray] = {}
+        dtypes: Dict[str, str] = {}
         for s in chain:
             r = NCKReader(self._step_path(s))
             names = json.loads(bytes(r.read_array("__names__")).decode())
             for var, key in names.items():
                 st = r.read_step(var)
+                dtypes[key] = st.dtype
                 if st.is_anchor:
                     state[key] = decode_anchor(st, self.device)
                 else:
                     state[key] = decompress_step(st, state[key], self.device)
-        return state
+        return state, dtypes
 
     def restore_latest(self, template: Any = None
                        ) -> Optional[Tuple[int, Any]]:
         """(step, tree) from the newest valid checkpoint; walks back past
         corrupt files.  Without `template` the tree is nested dicts of
-        ndarrays; with one, it has the template's structure and each leaf
-        its template leaf's shape and dtype: a tensor on the template's
-        device (on the manager's device for a "meta" template), an
-        ndarray, or a Python scalar.
+        ndarrays (bfloat16 leaves as CPU ``torch.bfloat16`` tensors, since
+        numpy has no bfloat16); with one, it has the template's structure
+        and each leaf its template leaf's shape and dtype: a tensor on the
+        template's device (on the manager's device for a "meta"
+        template), an ndarray, or a Python scalar.
 
         Every skipped (corrupt/missing) step is recorded in
         ``last_restore_report`` -- a list of ``{"step", "error"}`` dicts."""
@@ -313,28 +312,23 @@ class CheckpointManager:
         self.last_restore_report = []
         for step in reversed(m["steps"]):
             try:
-                flat = self._load_flat(step, m)
+                flat, dtypes = self._load_flat(step, m)
                 self._recon_state = {k: self._seeded_chain(v)
                                      for k, v in flat.items()}
                 self._save_count = len(
                     [s for s in m["steps"] if s <= step])
-                return step, self._unflatten(flat, template)
+                return step, self._unflatten(flat, dtypes, template)
             except Exception as e:  # noqa: BLE001 -- corrupt/missing: walk back
                 self.last_restore_report.append(
                     {"step": int(step), "error": f"{type(e).__name__}: {e}"})
         return None
 
-    def _unflatten(self, flat: Dict[str, np.ndarray], template: Any):
+    def _unflatten(self, flat: Dict[str, np.ndarray], dtypes: Dict[str, str],
+                   template: Any):
         if template is None:
-            # nested-dict reconstruction from path keys
-            root: Dict = {}
-            for key, arr in flat.items():
-                parts = key.split("/")
-                d = root
-                for p in parts[:-1]:
-                    d = d.setdefault(p, {})
-                d[parts[-1]] = arr
-            return root
+            return nest({k: (storage_tensor(arr, dtypes[k])
+                             if dtypes[k] == "bfloat16" else arr)
+                         for k, arr in flat.items()})
 
         def build(node, path: Tuple[str, ...]):
             if isinstance(node, dict):
@@ -345,16 +339,18 @@ class CheckpointManager:
                                   for i, v in enumerate(node))
             if node is None:
                 return None
-            return self._leaf_like(flat["/".join(path)], node)
+            key = "/".join(path)
+            return self._leaf_like(flat[key], dtypes[key], node)
 
         return build(template, ())
 
-    def _leaf_like(self, arr: np.ndarray, leaf):
-        """`arr` on `leaf`'s shape and dtype, and for a tensor its device."""
+    def _leaf_like(self, arr: np.ndarray, dtype_name: str, leaf):
+        """`arr` (storage of the recorded `dtype_name`) on `leaf`'s shape
+        and dtype, and for a tensor its device."""
         if isinstance(leaf, torch.Tensor):
             dev = self.device if leaf.device.type == "meta" else leaf.device
-            return torch.from_numpy(arr.reshape(tuple(leaf.shape))).to(
-                device=dev, dtype=leaf.dtype)
+            return storage_tensor(arr, dtype_name).reshape(
+                tuple(leaf.shape)).to(device=dev, dtype=leaf.dtype)
         if isinstance(leaf, (bool, int, float)):
             return type(leaf)(arr.reshape(()).item())
         arr = arr.reshape(np.shape(leaf))

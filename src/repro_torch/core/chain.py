@@ -17,12 +17,13 @@ residency never changes output.
 from __future__ import annotations
 
 import copy
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core import pipeline as pipe
+from repro_torch.core.tree import map_with_keys
 from repro_torch.kernels import ops as kops
 
 CHAIN_HOST = "host"
@@ -173,7 +174,39 @@ def make_reference_chain(residency: str, dtype,
     return HostReferenceChain()
 
 
+# -- serve-side session state ----------------------------------------------
+
+def tree_to_host(tree) -> Any:
+    """A private host copy of a tree: tensors become CPU tensors (which
+    keep bfloat16, where numpy has none), other leaves ndarrays."""
+    return map_with_keys(lambda _, x: (x.detach().to("cpu", copy=True)
+                                       if isinstance(x, torch.Tensor)
+                                       else np.array(x)), tree)
+
+
+class SessionChain:
+    """Handle for device-resident session state (a tree of tensors).
+
+    The serve-side analogue of a ReferenceChain: decode caches, resume
+    token and position stay on the device between requests; ``to_host()``
+    is the explicit durable-write boundary (session snapshots to disk).
+    """
+
+    def __init__(self, tree: Dict[str, Any]):
+        self._tree = tree
+
+    def __getitem__(self, key: str):
+        return self._tree[key]
+
+    @property
+    def tree(self) -> Dict[str, Any]:
+        return self._tree
+
+    def to_host(self) -> Dict[str, Any]:
+        return tree_to_host(self._tree)
+
+
 __all__ = ["ReferenceChain", "HostReferenceChain", "DeviceReferenceChain",
-           "make_reference_chain", "resolve_residency", "resolve_device",
-           "device_supports", "CHAIN_HOST", "CHAIN_DEVICE", "CHAIN_AUTO",
-           "RESIDENCIES"]
+           "SessionChain", "make_reference_chain", "resolve_residency",
+           "resolve_device", "device_supports", "tree_to_host",
+           "CHAIN_HOST", "CHAIN_DEVICE", "CHAIN_AUTO", "RESIDENCIES"]

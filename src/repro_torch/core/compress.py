@@ -55,7 +55,8 @@ from repro_torch.core.overlap import FinalizeQueue
 from repro_torch.core.pipeline import DeviceEncoded
 from repro_torch.core.types import (REF_RECONSTRUCTED, STRATEGY_EQUAL,
                                     STRATEGY_LOG, STRATEGY_TOPK,
-                                    CompressedStep, NumarckParams)
+                                    CompressedStep, NumarckParams,
+                                    step_dtype, storage_tensor)
 from repro_torch.faults.errors import IntegrityError
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import rans
@@ -195,7 +196,7 @@ def device_decode_route(step: CompressedStep) -> bool:
     if not codec.device:
         return False
     if step.is_anchor:
-        nbytes = step.n * np.dtype(step.dtype).itemsize
+        nbytes = step.n * step_dtype(step.dtype).itemsize
     else:
         nbytes = step.n * step.b_bits // 8
     return nbytes >= rans.DEVICE_MIN_BYTES
@@ -305,9 +306,11 @@ def encode_device(prev, curr, params: NumarckParams,
                                    else None))
 
 
-def make_anchor(arr: np.ndarray, params: NumarckParams) -> CompressedStep:
-    """Losslessly stored first iteration, in entropy-coded blocks."""
-    return pipe.finalize_anchor(arr, params)
+def make_anchor(arr: np.ndarray, params: NumarckParams,
+                dtype_name: Optional[str] = None) -> CompressedStep:
+    """Losslessly stored first iteration, in entropy-coded blocks; see
+    ``pipeline.finalize_anchor`` for `dtype_name`."""
+    return pipe.finalize_anchor(arr, params, dtype_name)
 
 
 def compress_step(prev: np.ndarray, curr: np.ndarray, params: NumarckParams,
@@ -317,10 +320,6 @@ def compress_step(prev: np.ndarray, curr: np.ndarray, params: NumarckParams,
                         device=device)
     return pipe.finalize_step(np.asarray(curr), dev.enc, dev.centers,
                               dev.domain_lo, dev.width, params, dev.meta)
-
-
-def _torch_dtype(dtype) -> torch.dtype:
-    return torch.from_numpy(np.zeros(0, dtype)).dtype
 
 
 def _record_read(step: CompressedStep, entropy_s: float = 0.0,
@@ -333,7 +332,7 @@ def _record_read(step: CompressedStep, entropy_s: float = 0.0,
         "entropy_s": entropy_s, "dequant_s": dequant_s, "patch_s": patch_s,
         "fetch_s": fetch_s,
         "bytes_in": int(sum(len(b) for b in step.index_blocks)),
-        "bytes_out": int(step.n) * np.dtype(step.dtype).itemsize,
+        "bytes_out": int(step.n) * step_dtype(step.dtype).itemsize,
         "codec": step.codec, "device_decode": bool(device)}
 
 
@@ -351,8 +350,11 @@ def decode_anchor(step: CompressedStep, device=None) -> np.ndarray:
     """Reconstruction of a losslessly stored anchor step, on the host.
     On the device decode route the rANS decode kernel inflates the blocks
     on ``device`` (CUDA unless the caller asks for the CPU) and only the
-    finished bytes come back; otherwise the host codecs inflate them."""
+    finished bytes come back; otherwise the host codecs inflate them.
+    The array has the step's storage dtype: a bfloat16 step comes back as
+    its uint16 bits (``types.storage_tensor`` views them as bfloat16)."""
     dev = chainmod.resolve_device(device)
+    sd = step_dtype(step.dtype)
     route = device_decode_route(step)
     with telemetry.span("decode.entropy", annotate=True) as sp_e:
         if route:
@@ -362,11 +364,11 @@ def decode_anchor(step: CompressedStep, device=None) -> np.ndarray:
             raw = b"".join(entropy.decompress_blocks(step.index_blocks,
                                                      step.codec))
     try:
-        out = np.frombuffer(raw, dtype=step.dtype).reshape(step.shape).copy()
+        out = np.frombuffer(raw, dtype=sd.storage).reshape(step.shape).copy()
     except ValueError as e:
         raise IntegrityError(
             f"anchor decode produced {len(raw)} bytes, expected "
-            f"{step.n * np.dtype(step.dtype).itemsize} for shape "
+            f"{step.n * sd.itemsize} for shape "
             f"{tuple(step.shape)} {step.dtype} ({e}) -- payload corrupt "
             "or truncated") from e
     if telemetry.enabled():
@@ -378,20 +380,23 @@ def decode_anchor_device(step: CompressedStep, device=None) -> torch.Tensor:
     """Anchor decode that leaves the reconstruction on ``device``: on the
     device decode route the decoded bytes are viewed in place as
     ``step.dtype``; otherwise the host decode is uploaded once.  The
-    result is identical either way."""
+    result is identical either way.  A bfloat16 step is viewed as
+    ``torch.bfloat16`` on the device (the reference decodes it on the
+    host); the bits are the same."""
     dev = chainmod.resolve_device(device)
+    sd = step_dtype(step.dtype)
     if not device_decode_route(step):
-        return torch.from_numpy(decode_anchor(step, dev)).to(dev)
+        return storage_tensor(decode_anchor(step, dev), sd.name).to(dev)
     tele = telemetry.enabled()
     with telemetry.span("decode.entropy", annotate=True) as sp_e:
         flat = rans.decode_bytes_blocks_device(step.index_blocks, dev)
-        want = step.n * np.dtype(step.dtype).itemsize
+        want = step.n * sd.itemsize
         if flat.numel() != want:
             raise IntegrityError(
                 f"anchor decode produced {flat.numel()} bytes, expected "
                 f"{want} for shape {tuple(step.shape)} {step.dtype} -- "
                 "payload corrupt or truncated")
-        out = flat.view(_torch_dtype(step.dtype)).reshape(step.shape)
+        out = flat.view(sd.torch).reshape(step.shape)
         if tele:
             _sync(dev)
     if tele:
@@ -433,7 +438,7 @@ def decompress_step_device(step: CompressedStep, prev,
     dev = (prev.device if isinstance(prev, torch.Tensor)
            else chainmod.resolve_device(device))
     tele = telemetry.enabled()
-    cdt = _torch_dtype(pipe.reconstruction_dtype(step.dtype))
+    cdt = step_dtype(pipe.reconstruction_dtype(step.dtype)).torch
     with telemetry.span("decode.entropy", annotate=True) as sp_e:
         idx = rans.decode_blocks_device(step.index_blocks, step.b_bits,
                                         step.block_elems, dev)
@@ -451,7 +456,7 @@ def decompress_step_device(step: CompressedStep, prev,
             recon = patch_exceptions(
                 recon, idx, torch.tensor(step.incomp_values, device=dev),
                 b_bits=step.b_bits)
-        out = recon.to(_torch_dtype(step.dtype)).reshape(step.shape)
+        out = recon.to(step_dtype(step.dtype).torch).reshape(step.shape)
         if tele:
             _sync(dev)
     if tele:

@@ -80,7 +80,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Union
 
 import numpy as np
 
-from repro_torch.core.types import CompressedStep
+from repro_torch.core.types import CompressedStep, step_dtype
 from repro_torch.faults import inject
 from repro_torch.faults.errors import (CommitTimeoutError, CorruptBlockError,
                                        CorruptShardError, IntegrityError)
@@ -763,7 +763,8 @@ class NCKReader:
         v = self.variables[name]
         raw = self.read(name)
         try:
-            return np.frombuffer(raw, dtype=v["dtype"]).reshape(v["shape"])
+            return np.frombuffer(raw, dtype=step_dtype(v["dtype"]).storage
+                                 ).reshape(v["shape"])
         except (ValueError, TypeError) as e:
             raise IntegrityError(
                 f"{self.path}: variable {name!r} payload does not match "

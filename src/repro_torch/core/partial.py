@@ -19,6 +19,7 @@ import numpy as np
 from repro_torch.core import blocks, entropy
 from repro_torch.core.container import NCKReader, NCKWriter
 from repro_torch.core.pipeline import reconstruction_dtype
+from repro_torch.core.types import step_dtype
 
 
 def _range_blocks(start: int, stop: int, block_elems: int):
@@ -57,7 +58,8 @@ def read_step_range(reader: NCKReader, name: str, start: int, stop: int,
             f"{name}_anchor",
             [raw[int(starts[k]):int(starts[k + 1])]
              for k in range(b1 - b0 + 1)], first_block=b0)
-        esize = np.dtype(info["dtype"]).itemsize
+        sd = step_dtype(info["dtype"])
+        esize = sd.itemsize
         # Exact decompressed byte span of each block (the last block of a
         # step is shorter): assemble straight into one preallocated
         # buffer, block-parallel over the shared entropy pool.
@@ -78,7 +80,7 @@ def read_step_range(reader: NCKReader, name: str, start: int, stop: int,
         else:
             for k in range(b1 - b0 + 1):
                 inflate(k)
-        arr = np.frombuffer(buf.data, dtype=info["dtype"])
+        arr = np.frombuffer(buf.data, dtype=sd.storage)
         lo = b0 * be
         return arr[start - lo: stop - lo].copy()
 
@@ -100,7 +102,7 @@ def read_step_range(reader: NCKReader, name: str, start: int, stop: int,
     # ...and one for the exception values they may reference.
     inc_lo = int(inc_offs[b0])
     inc_hi = int(inc_offs[b1 + 1]) if b1 + 1 < nblocks else n_incomp
-    esize = np.dtype(info["dtype"]).itemsize
+    esize = step_dtype(info["dtype"]).itemsize
     inc_vals = np.frombuffer(
         reader.read(f"{name}_incompressible_table", inc_lo * esize,
                     inc_hi * esize), dtype=info["dtype"])

@@ -300,9 +300,15 @@ def anchor_telemetry(bytes_in: int, blks: List[bytes], codec: str,
             "device_entropy": False}
 
 
-def finalize_anchor(arr: np.ndarray, params: NumarckParams) -> CompressedStep:
-    """Lossless anchor through the same entropy stage (codec-aware)."""
+def finalize_anchor(arr: np.ndarray, params: NumarckParams,
+                    dtype_name: Optional[str] = None) -> CompressedStep:
+    """Lossless anchor through the same entropy stage (codec-aware).
+    `dtype_name` is the dtype the step records over `arr`'s bytes when
+    it is not ``str(arr.dtype)``: ``"bfloat16"`` over the uint16 storage
+    that ``types.host_storage`` gives a bfloat16 tensor or ml_dtypes
+    array, so the step is the reference's byte for byte."""
     arr = np.asarray(arr)
+    dtype_name = dtype_name or str(arr.dtype)
     flat = arr.reshape(-1)
     block_elems = max(1, params.block_bytes // flat.dtype.itemsize)
     with telemetry.span("finalize.anchor", n=arr.size) as sp:
@@ -318,7 +324,7 @@ def finalize_anchor(arr: np.ndarray, params: NumarckParams) -> CompressedStep:
         meta["telemetry"] = anchor_telemetry(arr.size * flat.dtype.itemsize,
                                              blks, codec, sp.duration)
     return CompressedStep(
-        n=arr.size, shape=tuple(arr.shape), dtype=str(arr.dtype),
+        n=arr.size, shape=tuple(arr.shape), dtype=dtype_name,
         b_bits=0, error_bound=params.error_bound, strategy=params.strategy,
         reference=params.reference, domain_lo=0.0, bin_width=0.0,
         centers=np.zeros(0), block_elems=block_elems, codec=codec,

@@ -17,6 +17,7 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
+import torch
 
 # Strategy names (paper Sec. III-B / IV-B).
 STRATEGY_TOPK = "topk"
@@ -162,7 +163,7 @@ class CompressedStep:
         if self.is_anchor:
             return (sum(len(b) for b in self.index_blocks)
                     + 8 * (self.n_blocks + 1))
-        total = int(self.centers.size) * np.dtype(self.dtype).itemsize
+        total = int(self.centers.size) * step_dtype(self.dtype).itemsize
         total += sum(len(b) for b in self.index_blocks)
         total += 8 * (self.n_blocks + 1) * 2          # two offset tables
         if self.incomp_values is not None:
@@ -171,7 +172,7 @@ class CompressedStep:
 
     def compression_ratio(self) -> float:
         """CR = original size / compressed size (Eq. 2)."""
-        orig = self.n * np.dtype(self.dtype).itemsize
+        orig = self.n * step_dtype(self.dtype).itemsize
         return orig / max(self.nbytes, 1)
 
 
@@ -186,7 +187,64 @@ def mean_error_rate(original: np.ndarray, recon: np.ndarray) -> float:
 
 
 def dtype_nbytes(dtype) -> int:
-    return int(np.dtype(dtype).itemsize)
+    return step_dtype(dtype).itemsize
+
+
+@dataclass(frozen=True)
+class StepDtype:
+    """A step's recorded dtype: the name the reference writes
+    (``str(arr.dtype)``), its itemsize, its torch dtype, and the numpy
+    dtype that holds its bytes on the host."""
+
+    name: str
+    itemsize: int
+    torch: torch.dtype
+    storage: np.dtype
+
+
+# numpy has no bfloat16 without ml_dtypes (which the reference's jax
+# registers): the port holds its bytes as uint16.
+_BF16 = StepDtype("bfloat16", 2, torch.bfloat16, np.dtype(np.uint16))
+
+
+def step_dtype(dtype) -> StepDtype:
+    """The ``StepDtype`` of a recorded dtype name, a numpy dtype (an
+    ml_dtypes bfloat16 included) or a torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        name = str(dtype).removeprefix("torch.")
+    elif isinstance(dtype, str):
+        name = dtype
+    else:
+        name = str(np.dtype(dtype))
+    if name == _BF16.name:
+        return _BF16
+    storage = np.dtype(name)
+    return StepDtype(storage.name, storage.itemsize,
+                     torch.from_numpy(np.zeros(0, storage)).dtype, storage)
+
+
+def host_storage(x) -> tuple:
+    """(host ndarray of ``x``'s bytes in its storage dtype, recorded dtype
+    name) for a tensor or an ndarray; bfloat16 comes out as uint16.  A
+    CPU tensor's array shares its memory."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(np.uint16), _BF16.name
+        x = x.numpy()
+    arr = np.asarray(x)
+    if arr.dtype.name == _BF16.name:          # an ml_dtypes array
+        return arr.view(np.uint16), _BF16.name
+    return arr, str(arr.dtype)
+
+
+def storage_tensor(arr: np.ndarray, dtype) -> torch.Tensor:
+    """A CPU tensor of the recorded ``dtype`` over the storage bytes
+    ``arr`` (no copy): the inverse of ``host_storage``."""
+    sd = step_dtype(dtype)
+    if sd.torch == torch.bfloat16:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr.view(sd.storage))
 
 
 __all__ = [
@@ -194,6 +252,10 @@ __all__ = [
     "CompressedStep",
     "mean_error_rate",
     "dtype_nbytes",
+    "StepDtype",
+    "step_dtype",
+    "host_storage",
+    "storage_tensor",
     "STRATEGIES",
     "STRATEGY_TOPK",
     "STRATEGY_EQUAL",

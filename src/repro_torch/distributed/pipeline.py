@@ -53,7 +53,7 @@ from repro_torch.core.container import ShardNCKWriter, StepFragment
 from repro_torch.core.overlap import FinalizeQueue
 from repro_torch.core.pipeline import DeviceEncoded
 from repro_torch.core.types import (REF_RECONSTRUCTED, CompressedStep,
-                                    NumarckParams)
+                                    NumarckParams, step_dtype)
 from repro_torch.distributed import collectives as coll
 from repro_torch.faults import inject
 from repro_torch.kernels import ops as kops
@@ -89,7 +89,7 @@ def _shard(flat: np.ndarray, s: int, ln: int,
     the end (a zero previous value makes the pad an invalid ratio, so it
     indexes as the marker).  Always a private copy."""
     part = flat[s * ln:(s + 1) * ln]
-    out = torch.zeros(ln, dtype=comp._torch_dtype(part.dtype), device=dev)
+    out = torch.zeros(ln, dtype=step_dtype(part.dtype).torch, device=dev)
     out[:part.size] = torch.from_numpy(np.ascontiguousarray(part)).to(dev)
     return out
 
@@ -546,7 +546,7 @@ class ShardedDecompressor:
             raise ValueError("non-anchor steps need the previous state")
         tele = telemetry.enabled()
         cdt = pipe.reconstruction_dtype(step.dtype)
-        tdt = comp._torch_dtype(cdt)
+        tdt = step_dtype(cdt).torch
         marker = (1 << step.b_bits) - 1
         prev_flat = np.asarray(prev).reshape(-1).astype(cdt, copy=False)
         with telemetry.span("decode.entropy", annotate=True) as sp_e:

@@ -1,0 +1,267 @@
+"""Decoder-only LM assembly, dense GQA subset (the port of the reference's
+``models/lm.py``).
+
+The parameters are one ``LM`` module: ``embed`` (V, d), ``ln_f``, one
+``Layer`` per decoder layer (``ln_attn``, ``attn``, ``ln_mlp``, ``mlp``)
+and, untied, ``unembed`` (d, V).  The reference stacks the layers on a
+leading L axis and scans them; here a Python loop runs them in turn
+(``interop.model_params_from_reference`` unstacks a reference tree).
+
+The decode cache keeps the reference's stacked layout, so a session file
+carries its keys, shapes and dtypes: ``{"attn": {"k": (L,B,S,K,hd), "v":
+..., "pos_map": (L,S) int32}}`` (a per-layer list for mixed-window
+stacks).  Each layer's decode writes its slice of the cache in place.
+
+MLA, MoE, SSM, the hybrid layer loop, the frontends and ``lm_loss`` wait
+for later slices (ROADMAP Queue 1, item 7); ``shd.constrain`` is dropped
+(a no-op on one device).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+
+class Layer(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d = cfg.d_model
+        if cfg.n_heads:
+            self.ln_attn = L.RMSNorm(d, device)
+            self.attn = L.GQA(cfg, device)
+        if cfg.d_ff:
+            self.ln_mlp = L.RMSNorm(d, device)
+            self.mlp = L.FFN(cfg, device)
+
+
+class LM(nn.Module):
+    """The model's parameters, with the reference's names and shapes."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        dt = L.cdtype(cfg)
+        self.embed = nn.Parameter(
+            torch.empty((cfg.vocab_size, cfg.d_model), dtype=dt,
+                        device=device), requires_grad=False)
+        self.ln_f = L.RMSNorm(cfg.d_model, device)
+        self.layers = nn.ModuleList(Layer(cfg, device)
+                                    for _ in range(cfg.n_layers))
+        if not cfg.tie_embeddings:
+            self.unembed = nn.Parameter(
+                torch.empty((cfg.d_model, cfg.vocab_size), dtype=dt,
+                            device=device), requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> LM:
+    """Random weights at the reference's scales, drawn from `gen` (a
+    generator on `device`): embed N(0, 0.02), dense weights fan-in^-1/2,
+    ``wo`` (H*hd)^-1/2, untied unembed d^-1/2, biases 0, norm scales 1.
+    Drawn in float32 and stored in ``cfg.dtype``; norm scales stay
+    float32.  The draws are torch's, not jax's: only the scales match."""
+    p = LM(cfg, device)
+    p.embed.copy_(torch.randn(p.embed.shape, generator=gen,
+                              dtype=torch.float32, device=device) * 0.02)
+    for layer in p.layers:
+        if cfg.n_heads:
+            L.gqa_init(layer.attn, gen)
+        if cfg.d_ff:
+            L.ffn_init(layer.mlp, gen)
+    if not cfg.tie_embeddings:
+        p.unembed.copy_(torch.randn(p.unembed.shape, generator=gen,
+                                    dtype=torch.float32, device=device)
+                        * cfg.d_model ** -0.5)
+    return p
+
+
+def layer_flags(cfg: ModelConfig):
+    """(L,) int32 per-layer attention window (0 = global), on the host."""
+    if not cfg.sliding_window:
+        return np.zeros((cfg.n_layers,), np.int32)
+    w = np.full((cfg.n_layers,), cfg.sliding_window, np.int32)
+    for g in cfg.global_attn_layers:
+        w[g] = 0
+    return w
+
+
+# ---------------------------------------------------------------------------
+# one layer, prefill form
+# ---------------------------------------------------------------------------
+
+def _attn_block(p, x, cfg: ModelConfig, positions, window: int):
+    h = L.rms_norm(p.ln_attn, x, cfg.norm_eps)
+    return L.gqa_apply(p.attn, h, cfg=cfg, positions=positions,
+                       window=window, prefix=cfg.n_prefix,
+                       has_window=bool(cfg.sliding_window))
+
+
+def _mlp_block(p, x, cfg: ModelConfig):
+    return x + L.ffn_apply(p.mlp, L.rms_norm(p.ln_mlp, x, cfg.norm_eps))
+
+
+def layer_apply(p, x, *, cfg: ModelConfig, positions, window: int):
+    """x (B,T,d) -> (x', aux_loss); the attention and FFN branches."""
+    if cfg.n_heads:
+        a_out, _ = _attn_block(p, x, cfg, positions, window)
+        x = x + a_out
+    if cfg.d_ff:
+        x = _mlp_block(p, x, cfg)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# backbone forward (prefill logits)
+# ---------------------------------------------------------------------------
+
+def embed_inputs(params: LM, cfg: ModelConfig, tokens):
+    """Token embeddings (B, T, d) in the compute dtype."""
+    return params.embed.to(L.cdtype(cfg))[tokens]
+
+
+def unembed(params: LM, cfg: ModelConfig, x):
+    w = (params.embed.t() if cfg.tie_embeddings
+         else params.unembed).to(x.dtype)
+    return torch.matmul(x, w).to(torch.float32)
+
+
+@torch.no_grad()
+def forward(params: LM, cfg: ModelConfig, tokens):
+    """-> (logits (B,T,V) f32, aux_loss)."""
+    with L.matmul_numerics():
+        x = embed_inputs(params, cfg, tokens)
+        T = x.shape[1]
+        positions = torch.arange(T, dtype=torch.int32, device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lp, w in zip(params.layers, layer_flags(cfg)):
+            x, a = layer_apply(lp, x, cfg=cfg, positions=positions,
+                               window=int(w))
+            aux = aux + a
+        x = L.rms_norm(params.ln_f, x, cfg.norm_eps)
+        return unembed(params, cfg, x), aux
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+def empty_cache(cfg: ModelConfig, batch, s_max, stacked: bool = True,
+                device=None):
+    """Decode cache.  stacked=True -> leading L axis (uniform windows)."""
+    dt = L.cdtype(cfg)
+    windows = [int(w) for w in layer_flags(cfg)]
+    if stacked:
+        one = L.gqa_empty_cache(cfg, batch, s_max, windows[0], dt, device)
+        return {"attn": {k: torch.stack([v] * cfg.n_layers)
+                         for k, v in one.items()}}
+    return [{"attn": L.gqa_empty_cache(cfg, batch, s_max, w, dt, device)}
+            for w in windows]
+
+
+def uses_layer_loop(cfg: ModelConfig) -> bool:
+    """Heterogeneous caches (mixed SWA/global) -> a per-layer cache list."""
+    return bool(cfg.global_attn_layers)
+
+
+def _layer_cache(cache, i: int):
+    """Layer i's cache, as views into the stacked tensors."""
+    if isinstance(cache, list):
+        return cache[i]
+    return {"attn": {k: v[i] for k, v in cache["attn"].items()}}
+
+
+def layer_decode(p, x, cache, *, cfg: ModelConfig, pos, window: int,
+                 prefix: int = 0):
+    """One layer, one token.  cache: {"attn": ...} for this layer,
+    updated in place."""
+    if cfg.n_heads:
+        h = L.rms_norm(p.ln_attn, x, cfg.norm_eps)
+        a_out, _ = L.gqa_decode(p.attn, h, cache["attn"], cfg=cfg, pos=pos,
+                                window=window, prefix=prefix)
+        x = x + a_out
+    if cfg.d_ff:
+        x = _mlp_block(p, x, cfg)
+    return x, cache
+
+
+@torch.no_grad()
+def decode_step(params: LM, cfg: ModelConfig, cache, token, pos):
+    """One new token for the whole batch.
+
+    token (B,1) int; pos a 0-d int32 tensor (absolute position); cache
+    as from `empty_cache`/`prefill`, written in place.
+    Returns (logits (B,1,V) f32, cache).
+    """
+    with L.matmul_numerics():
+        x = embed_inputs(params, cfg, token)
+        windows = layer_flags(cfg)
+        for i, lp in enumerate(params.layers):
+            x, _ = layer_decode(lp, x, _layer_cache(cache, i), cfg=cfg,
+                                pos=pos, window=int(windows[i]),
+                                prefix=cfg.n_prefix)
+        x = L.rms_norm(params.ln_f, x, cfg.norm_eps)
+        return unembed(params, cfg, x), cache
+
+
+@torch.no_grad()
+def prefill(params: LM, cfg: ModelConfig, tokens,
+            s_max: Optional[int] = None):
+    """Full forward + build the decode cache.
+
+    Returns (logits_last (B,1,V), cache, next_pos 0-d int32).
+    """
+    with L.matmul_numerics():
+        dt = L.cdtype(cfg)
+        x = embed_inputs(params, cfg, tokens)
+        B, T, _ = x.shape
+        s_max = s_max or T
+        dev = x.device
+        positions = torch.arange(T, dtype=torch.int32, device=dev)
+        windows = [int(w) for w in layer_flags(cfg)]
+        cache = empty_cache(cfg, B, s_max, stacked=not uses_layer_loop(cfg),
+                            device=dev)
+        for i, lp in enumerate(params.layers):
+            if cfg.n_heads:
+                a_out, (k, v) = _attn_block(lp, x, cfg, positions,
+                                            windows[i])
+                _kv_to_cache(_layer_cache(cache, i)["attn"], k, v, T,
+                             windows[i], dt)
+                x = x + a_out
+            if cfg.d_ff:
+                x = _mlp_block(lp, x, cfg)
+        x = L.rms_norm(params.ln_f, x[:, -1:, :], cfg.norm_eps)
+        logits = unembed(params, cfg, x)
+        return logits, cache, torch.tensor(T, dtype=torch.int32, device=dev)
+
+
+def _kv_to_cache(c, k, v, T: int, window: int, dt) -> None:
+    """Prefill K/V (B,T,K,hd) -> the layer's decode cache `c` (its
+    zeroed tensors, written in place; a ring for SWA)."""
+    ring = c["k"].shape[1]
+    dev = k.device
+    if window and T > ring:
+        # keep the trailing `ring` positions, placed at their ring slots
+        keep = torch.arange(T - ring, T, dtype=torch.int32, device=dev)
+        slots = (keep % ring).to(torch.int64)
+        c["k"].index_copy_(1, slots, k[:, -ring:].to(dt))
+        c["v"].index_copy_(1, slots, v[:, -ring:].to(dt))
+        c["pos_map"].index_copy_(0, slots, keep)
+    else:
+        c["k"][:, :T] = k.to(dt)
+        c["v"][:, :T] = v.to(dt)
+        c["pos_map"][:T] = torch.arange(T, dtype=torch.int32, device=dev)
+
+
+__all__ = ["LM", "Layer", "init_params", "layer_flags", "layer_apply",
+           "embed_inputs", "forward", "unembed", "empty_cache",
+           "uses_layer_loop", "layer_decode", "decode_step", "prefill"]

@@ -1,0 +1,91 @@
+"""Public model API: --arch <id> -> Model(init/forward/prefill/decode)
+(the port of the reference's ``models/model.py``, dense GQA subset).
+
+The model runs on the CUDA device unless the caller passes
+``device="cpu"``; without a GPU a CUDA device raises.  Families and
+attention kinds this slice does not port raise ``NotImplementedError``
+naming their ROADMAP item.  ``input_specs``/``shape_params`` (the
+reference's dry-run stand-ins) come with the launch tooling (item 8).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Union
+
+import torch
+
+from repro_torch.core.chain import resolve_device
+from repro_torch.models import lm
+from repro_torch.models.config import ModelConfig
+
+# What this slice does not port, and where the ROADMAP queues it.
+_UNPORTED = (
+    (lambda c: c.attn_kind == "mla", "MLA attention",
+     "ROADMAP Queue 1, item 7a (MLA)"),
+    (lambda c: bool(c.n_experts), "MoE FFN", "ROADMAP Queue 1, item 7b (MoE)"),
+    (lambda c: c.family == "ssm", "the SSM (SSD) stack",
+     "ROADMAP Queue 1, item 7c (SSM)"),
+    (lambda c: c.family == "hybrid", "the hybrid layer loop",
+     "ROADMAP Queue 1, item 7d (hybrid)"),
+    (lambda c: bool(c.frontend), "the patch/frame frontends",
+     "ROADMAP Queue 1, item 7e (frontends)"),
+)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    for test, what, item in _UNPORTED:
+        if test(cfg):
+            raise NotImplementedError(
+                f"{cfg.name} needs {what}, not yet ported to PyTorch "
+                f"({item}); the port serves dense GQA models")
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig):
+        check_supported(cfg)
+        self.cfg = cfg
+
+    # ---- parameters ------------------------------------------------------
+    def init(self, generator: Union[int, torch.Generator] = 0,
+             device=None) -> lm.LM:
+        """Random parameters on `device` (CUDA unless the caller asks for
+        another) from a seeded generator: an int seeds a new one."""
+        dev = resolve_device(device)
+        if not isinstance(generator, torch.Generator):
+            generator = torch.Generator(device=dev).manual_seed(generator)
+        return lm.init_params(generator, self.cfg, dev)
+
+    def param_count(self) -> int:
+        """Elements of every parameter (shapes only; nothing allocated)."""
+        return sum(p.numel() for p in lm.LM(self.cfg, "meta").parameters())
+
+    # ---- steps -----------------------------------------------------------
+    def forward(self, params, batch):
+        return lm.forward(params, self.cfg, batch["tokens"])
+
+    def prefill(self, params, batch, s_max: Optional[int] = None):
+        return lm.prefill(params, self.cfg, batch["tokens"], s_max=s_max)
+
+    def decode(self, params, cache, token, pos):
+        return lm.decode_step(params, self.cfg, cache, token, pos)
+
+    def empty_cache(self, batch, s_max, device=None):
+        return lm.empty_cache(self.cfg, batch, s_max,
+                              stacked=not lm.uses_layer_loop(self.cfg),
+                              device=resolve_device(device))
+
+    # ---- concrete sample batches (smoke tests / examples) -----------------
+    def sample_batch(self, generator: torch.Generator, batch_size: int,
+                     seq_len: int) -> Dict[str, torch.Tensor]:
+        """{tokens, labels} (B, T) int64 on the generator's device."""
+        kw = dict(generator=generator, device=generator.device)
+        V = self.cfg.vocab_size
+        return {"tokens": torch.randint(0, V, (batch_size, seq_len), **kw),
+                "labels": torch.randint(0, V, (batch_size, seq_len), **kw)}
+
+
+def build(arch_id: str, smoke: bool = False) -> Model:
+    from repro_torch.configs import get_config, get_smoke_config
+    return Model(get_smoke_config(arch_id) if smoke else get_config(arch_id))
+
+
+__all__ = ["Model", "build", "check_supported"]

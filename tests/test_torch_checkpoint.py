@@ -296,10 +296,41 @@ def test_restore_with_template(tmp_path):
     assert plain["params"]["blocks"].keys() == {"0", "1"}
 
 
-def test_bfloat16_leaf_is_refused(tmp_path):
-    mgr = CheckpointManager(str(tmp_path), device="cpu")
-    with pytest.raises(TypeError, match="'params/w' is bfloat16"):
-        mgr.save(0, {"params": {"w": torch.zeros(8, dtype=torch.bfloat16)}})
+def test_bfloat16_leaf_matches_jax_and_restores_as_bfloat16(tmp_path):
+    """A bfloat16 leaf is a lossless anchor on every save, as in the
+    reference: three saves of a tree with one (a torch tensor here, an
+    ml_dtypes array there) give byte-identical step files and
+    MANIFEST.json, and restore_latest(template=) returns it as
+    torch.bfloat16, bit for bit; without a template too."""
+    ml_dtypes = pytest.importorskip("ml_dtypes")
+    rng = np.random.default_rng(3)
+    jdir, tdir = tmp_path / "jax", tmp_path / "port"
+    jm = JManager(str(jdir), JParams(**KW), anchor_every=2, keep=10)
+    tm = CheckpointManager(str(tdir), NumarckParams(**KW), anchor_every=2,
+                           keep=10, device="cpu")
+    state = _state(4)
+    for step in range(3):
+        w = rng.standard_normal((40, 130)).astype(ml_dtypes.bfloat16)
+        jm.save(step, dict(state, w=w))
+        tm.save(step, dict(_to_torch(state),
+                           w=torch.from_numpy(w.view(np.int16)).view(
+                               torch.bfloat16)))
+        state = _evolve(state, rng)
+    jm.wait()
+    want, got = _files(jdir), _files(tdir)
+    assert sorted(got) == sorted(want) and len(want) == 4
+    for name in want:
+        assert got[name] == want[name], name
+    tmpl = dict(_to_torch(state), w=torch.zeros((40, 130),
+                                                dtype=torch.bfloat16))
+    step, tree = tm.restore_latest(template=tmpl)
+    assert step == 2 and tree["w"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(tree["w"].view(torch.int16).numpy(),
+                                  w.view(np.int16))
+    _, plain = tm.restore_latest()
+    assert plain["w"].dtype == torch.bfloat16
+    assert torch.equal(plain["w"].view(torch.int16), tree["w"].view(
+        torch.int16))
 
 
 @pytest.mark.parametrize("residency", ["host", "device"])

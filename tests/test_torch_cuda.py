@@ -641,3 +641,76 @@ def test_cuda_sharded_matches_cpu(cuda, monkeypatch, codec):
     for a, b in zip(recon, repro_torch.decompress_series(got,
                                                          device="cpu")):
         np.testing.assert_array_equal(a, b)
+
+
+def _serve_models(cuda):
+    """The reduced llama3.2-1b (float32) on the CPU and the same weights
+    on the card."""
+    import copy
+
+    from repro_torch.models.model import build
+
+    model = build("llama3.2-1b", smoke=True)
+    cpu = model.init(0, device="cpu")
+    return model, cpu, copy.deepcopy(cpu).to(cuda)
+
+
+@pytest.mark.cuda
+def test_cuda_model_matches_cpu(cuda):
+    """Prefill and eight decode steps on the card against the CPU: logits
+    within 1e-3 (float32 matmuls in full float32 on both; the sums run
+    in other orders)."""
+    from repro_torch.models import lm
+
+    model, cpu, card = _serve_models(cuda)
+    cfg = model.cfg
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 18)))
+    got = lm.prefill(card, cfg, toks[:, :10].to(cuda), s_max=18)
+    want = lm.prefill(cpu, cfg, toks[:, :10], s_max=18)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(),
+                               rtol=1e-3, atol=1e-3)
+    gc, wc, pos = got[1], want[1], want[2]
+    for i in range(10, 18):
+        gl, gc = lm.decode_step(card, cfg, gc, toks[:, i:i + 1].to(cuda),
+                                pos.to(cuda))
+        wl, wc = lm.decode_step(cpu, cfg, wc, toks[:, i:i + 1], pos)
+        np.testing.assert_allclose(gl.cpu().numpy(), wl.numpy(),
+                                   rtol=1e-3, atol=1e-3)
+        pos = pos + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["zlib", "rans"])
+def test_cuda_engine_matches_cpu(cuda, tmp_path, monkeypatch, codec):
+    """The engine on the card gives the CPU engine's greedy tokens, and a
+    session saved on the card resumes on the CPU (and the reverse) to
+    the same tokens; with rans every leaf inflates through the decode
+    kernel (DEVICE_MIN_BYTES = 0)."""
+    from repro_torch.serve.engine import Engine
+
+    monkeypatch.setattr(rans, "DEVICE_MIN_BYTES", 0)
+    model, cpu, card = _serve_models(cuda)
+    p = np.random.default_rng(1).integers(0, model.cfg.vocab_size,
+                                          (2, 10)).astype(np.int32)
+    e_card = Engine(model, card, 2, 32, keep_session=True, device=cuda)
+    e_cpu = Engine(model, cpu, 2, 32, keep_session=True, device="cpu")
+    np.testing.assert_array_equal(e_card.generate(p, max_new=6),
+                                  e_cpu.generate(p, max_new=6))
+    path = str(tmp_path / "card.nck")
+    e_card.save_session(path, codec=codec)
+    rest = e_card.resume(max_new=6)
+    e_cpu.load_session(path)
+    np.testing.assert_array_equal(e_cpu.resume(max_new=6), rest)
+    e_cpu.save_session(path, codec=codec)
+    r = repro_torch.NCKReader(path)
+    steps = [r.read_step(v) for v in r.step_names()]
+    want = sum(len({tuple(rans._parse_v1(b)[:2]) for b in st.index_blocks
+                    if rans.blob_version(b) == 1}) for st in steps)
+    assert (want > 0) == (codec == "rans")
+    rans.DECODE.launches = 0
+    e_card.load_session(path)
+    assert rans.DECODE.launches == want
+    assert e_card.last_cache["attn"]["k"].is_cuda
+    np.testing.assert_array_equal(e_card.resume(max_new=4),
+                                  e_cpu.resume(max_new=4))

@@ -63,9 +63,18 @@ def _raws(n=8, size=1 << 18):
             .astype(np.uint8).tobytes() for i in range(n)]
 
 
+def _shipped(names):
+    """Registry names without the codecs test suites register themselves
+    (``_test_*``): tests/test_entropy.py adds one to the reference's
+    registry, and under --dist loadfile it may run first in this
+    process."""
+    return [n for n in names if not n.startswith("_test_")]
+
+
 def test_codec_registry_matches_the_reference():
-    assert entropy.codec_names() == jentropy.codec_names()
-    for name in entropy.codec_names():
+    assert _shipped(entropy.codec_names()) == _shipped(
+        jentropy.codec_names())
+    for name in _shipped(entropy.codec_names()):
         assert (entropy.get_codec(name).holds_gil
                 == jentropy.get_codec(name).holds_gil), name
 

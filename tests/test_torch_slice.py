@@ -243,9 +243,10 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.kernels.ops, repro_torch.interop, "
             "repro_torch.distributed.pipeline, "
             "repro_torch.launch.distributed, repro_torch.obs, "
-            "repro_torch.checkpoint\n"
+            "repro_torch.checkpoint, repro_torch.models.model, "
+            "repro_torch.serve.engine, repro_torch.configs\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro'))\n"
+            "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -266,5 +267,6 @@ def test_no_jax_or_repro_import_in_the_port():
             else:
                 continue
             for name in names:
-                assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+                assert name.split(".")[0] not in ("jax", "jaxlib", "repro",
+                                                  "ml_dtypes"), \
                     f"{f}: imports {name}"
