@@ -58,7 +58,19 @@ Phases, each fatal on failure (exit code 1, no result line):
               rANS decode kernel once per v1 group of each leaf on the
               device route (rans) and no kernel with zlib; bf16 logits
               against f32 and decode_step against prefill at cosine >= 0.99.
-  11. kernels each kernel against its plain version on the card, exactly,
+  11. train   Trainer.fit on the card: Llama-3.2-1B at full width and depth
+              (bf16, seeded on the card), 4 x 256 TokenPipeline tokens a
+              step, 8 steps with gradient compression off and 8 at B = 6
+              (the histogram kernel once per compressed leaf per step, no
+              other kernel), losses finite and falling by LOSS_DROP; step
+              ms, tokens/s, peak memory, the device idle share of 3 more
+              steps under torch.profiler.  quantize_dequantize on real
+              gradients, card against CPU, bit for bit; one step of the
+              reduced f32 config, card against CPU.  A restart at full
+              width cut to 2 layers: an anchor at step 2, a delta at 4
+              (kernels 1-4 once per lossy leaf), a new Trainer restores
+              step 4 and trains to 6, matching the uninterrupted run.
+  12. kernels each kernel against its plain version on the card, exactly,
               at n = 42*360*240 (the CMIP step) and n = 2^26, with timings
               (median of 20 launches, CUDA events, after warm-up) beside
               the bound the card's memory and arithmetic rates set.  The
@@ -1674,6 +1686,302 @@ def serve_phase(torch, np, dev, launches: dict) -> dict:
     return out
 
 
+# Llama-3.2-1B trained at full width and depth: TRAIN_BATCH x TRAIN_SEQ
+# TokenPipeline tokens a step, TRAIN_STEPS steps a run (compression off,
+# then B = TRAIN_BITS), then TRAIN_PROFILED more under torch.profiler.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_PROFILED = 4, 256, 8, 3
+TRAIN_BITS = 6
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
+LOSS_DROP = 1.0                    # nats, step 1 -> step TRAIN_STEPS (PERF.md)
+GRAD_LEAVES = ("layers/attn/wk", "layers/attn/wo", "layers/ln_attn/scale",
+               "ln_f/scale")       # real gradients, card against the CPU
+# The restart run: full width, depth cut to RESTART_LAYERS decoder layers
+# (the tied embedding kept); checkpoints every 2 steps, an anchor at 2 and
+# a delta at 4, a crash, a restore and steps 5-6.
+RESTART_LAYERS, RESTART_E = 2, 1e-4
+RESTART_LOSS_RTOL = 1e-3           # resumed against uninterrupted (PERF.md)
+STEP_LOSS_RTOL = 1e-5              # one f32 smoke step, card against CPU
+
+
+def train_config(bits: int, **kw):
+    from repro_torch.train import optim
+    from repro_torch.train.trainer import TrainerConfig
+    return TrainerConfig(opt=optim.AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, decay_steps=1000),
+        grad_compression_bits=bits, **kw)
+
+
+def quiet(*_):
+    pass
+
+
+def train_phase(torch, np, dev, launches: dict) -> dict:
+    """Training on the card (Trainer.fit through launch/train.py's
+    pieces).  (1) Llama-3.2-1B at full width and depth, bf16, seeded on
+    the card: TRAIN_STEPS steps with gradient compression off and at
+    B = TRAIN_BITS from the same seed; finite losses that fall by
+    LOSS_DROP; the histogram kernel once per compressed leaf per step and
+    no other kernel; step ms, tokens/s, peak memory and the device idle
+    share of TRAIN_PROFILED warm steps.  (2) quantize_dequantize on real
+    gradients on the card against the CPU path, bit for bit; one step of
+    the reduced f32 config on the card against the CPU.  (3) A restart
+    at full width cut to RESTART_LAYERS layers: an anchor at step 2, a
+    delta at 4 through kernels 1-4 once per lossy leaf, a new Trainer
+    restores step 4 (the step exact, moments within E of the anchor's)
+    and trains steps 5-6 to the uninterrupted run's losses."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch import interop
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.tree import leaves_with_keys
+    from repro_torch.core.types import NumarckParams
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import hist, ops
+    from repro_torch.models.model import Model, build
+    from repro_torch.train import gradcomp, optim
+    from repro_torch.train.trainer import Trainer, loss_and_grads
+
+    card = card_line()
+    K = ops.KERNELS
+    t_phase = time.perf_counter()
+    cfg = serve_config()
+    model = Model(cfg)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ + 1, TRAIN_BATCH, seed=0)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = dict(arch=cfg.name, params=model.param_count(), batch=TRAIN_BATCH,
+               seq=TRAIN_SEQ, steps=TRAIN_STEPS, lr=TRAIN_LR, runs={})
+    grads = None
+    for bits in (0, TRAIN_BITS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(model, train_config(bits), device=dev)
+        t0 = time.perf_counter()
+        state = tr.init_state(0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_leaves = len(list(leaves_with_keys(state.params)))
+        (state, step, losses), got = counted(torch, K, lambda: tr.fit(
+            state, pipe.from_step(0), n_steps=TRAIN_STEPS, log=quiet))
+        label = f"train B={bits}"
+        check_counts(label, got, {"hist": TRAIN_STEPS * n_leaves}
+                     if bits else {})
+        launches[label] = got
+        if not all(np.isfinite(losses)) or \
+                losses[-1] > losses[0] - LOSS_DROP:
+            raise AssertionError(f"{label}: losses {losses} do not fall by "
+                                 f"{LOSS_DROP}")
+        step_ms = statistics.median(tr._times[1:]) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        tpath = str(OUT / f"profile_train_b{bits}.json")
+        OUT.mkdir(exist_ok=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("chip_smoke.train"):
+                state, step, more = tr.fit(
+                    state, pipe.from_step(step), start_step=step,
+                    n_steps=step + TRAIN_PROFILED, log=quiet)
+                torch.cuda.synchronize()
+        prof.export_chrome_trace(tpath)
+        share = idle_share(tpath, "chip_smoke.train")
+        with open(tpath, "rb") as f, gzip.open(tpath + ".gz", "wb") as g:
+            shutil.copyfileobj(f, g)
+        os.remove(tpath)
+        run = dict(losses=losses, profiled_losses=more, init_s=init_s,
+                   step_ms=step_ms, first_step_ms=tr._times[0] * 1e3,
+                   step_ms_all=[round(t * 1e3, 2) for t in tr._times],
+                   tokens_per_s=tokens / step_ms * 1e3,
+                   peak_device_bytes=peak, idle_share=share["idle_share"],
+                   idle_window_ms=share["window_ms"],
+                   kernels_in_window=share["kernels"],
+                   top_kernels_ms=share["top_kernels_ms"], launches=got)
+        out["runs"][f"B={bits}"] = run
+        log(f"train {cfg.name} full width, {cfg.n_layers} layers, "
+            f"{cfg.dtype}, {out['params']} parameters, {TRAIN_BATCH} x "
+            f"{TRAIN_SEQ} tokens, gradient compression "
+            f"{'B=' + str(bits) if bits else 'off'}: losses "
+            f"{[round(x, 4) for x in losses]}, step {step_ms:.1f} ms "
+            f"(median of steps 2-{TRAIN_STEPS}; the first "
+            f"{run['first_step_ms']:.1f}), {run['tokens_per_s']:.0f} "
+            f"tokens/s, peak {peak / 1e9:.2f} GB, launches {json.dumps(got)}"
+            f"; device idle share {share['idle_share']:.4f} of "
+            f"{share['window_ms']:.1f} ms ({TRAIN_PROFILED} steps, "
+            f"{share['kernels']} kernels, busy "
+            f"{share['kernel_busy_ms']:.1f} ms); top kernels ms "
+            f"{json.dumps(share['top_kernels_ms'])}; trace {tpath}.gz; "
+            f"{card}")
+        if not bits:
+            # real gradients of the trained model, for (2)
+            _, _, g = loss_and_grads(model, state.params, {
+                k: torch.as_tensor(v, device=dev)
+                for k, v in pipe.batch(step).items()})
+            flat = dict(leaves_with_keys(g))
+            grads = {k: flat[k].float() for k in GRAD_LEAVES}
+            del g, flat
+        del tr, state
+        torch.cuda.empty_cache()
+
+    # -- (2) the card against the CPU -------------------------------------
+    rows = {}
+    for key, g in grads.items():
+        hist.KERNEL.launches = 0
+        got, ginfo = gradcomp.quantize_dequantize(g, b_bits=TRAIN_BITS)
+        torch.cuda.synchronize()
+        n_launch = hist.KERNEL.launches
+        want, winfo = gradcomp.quantize_dequantize(g.cpu(),
+                                                   b_bits=TRAIN_BITS)
+        if n_launch != 1 or not torch.equal(
+                got.cpu().view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"train gradcomp {key}: the card differs "
+                                 f"from the CPU ({n_launch} launches)")
+        a, b = float(ginfo["alpha"]), float(winfo["alpha"])
+        if abs(a - b) > 1e-6 * max(abs(b), 1e-30):
+            raise AssertionError(f"train gradcomp {key}: alpha {a} vs {b}")
+        rows[key] = dict(n=g.numel(), alpha=a, alpha_cpu=b)
+    del grads
+    out["gradcomp_card_vs_cpu"] = rows
+    smoke = build(SERVE_ARCH, smoke=True)
+    cpu_tr = Trainer(smoke, train_config(TRAIN_BITS), device="cpu")
+    card_tr = Trainer(smoke, train_config(TRAIN_BITS), device=dev)
+    cpu_s = cpu_tr.init_state(0)
+    card_s = interop.train_state_from_reference(
+        interop.train_state_to_reference(cpu_s), smoke.cfg, device=dev)
+    sp = TokenPipeline(smoke.cfg.vocab_size, 65, 4, seed=1)
+    cpu_s, _, want = cpu_tr.fit(cpu_s, sp.from_step(0), n_steps=1,
+                                log=quiet)
+    card_s, _, got = card_tr.fit(card_s, sp.from_step(0), n_steps=1,
+                                 log=quiet)
+    lr1 = float(optim.schedule(train_config(0).opt, torch.tensor(1)))
+    card_p = dict(leaves_with_keys(interop.train_state_to_reference(card_s)))
+    worst = max(float(np.abs(card_p[k] - w).max()) for k, w in
+                leaves_with_keys(interop.train_state_to_reference(cpu_s))
+                if k.startswith("params/"))
+    if abs(got[0] - want[0]) > STEP_LOSS_RTOL * abs(want[0]) \
+            or worst > 2 * lr1 * 1.001:
+        raise AssertionError(f"train smoke step: card loss {got[0]} vs cpu "
+                             f"{want[0]}, params max diff {worst}")
+    out["smoke_step"] = dict(loss_card=got[0], loss_cpu=want[0],
+                             params_max_abs_diff=worst, lr=lr1)
+    log(f"train card against CPU: quantize_dequantize B={TRAIN_BITS} on "
+        f"real gradients bit-exact, one histogram launch each, "
+        f"{json.dumps(rows)}; one {smoke.cfg.name} smoke (f32) step: loss "
+        f"{got[0]:.7f} card, {want[0]:.7f} CPU, params max abs diff "
+        f"{worst:.3e} (bound 2 lr = {2 * lr1:.1e})")
+
+    # -- (3) restart: an anchor at 2, a delta at 4, crash, restore --------
+    cut = dataclasses.replace(cfg, n_layers=RESTART_LAYERS)
+    rmodel = Model(cut)
+    tcfg = train_config(0, checkpoint_every=2)
+    tmp = tempfile.mkdtemp()
+    params = NumarckParams(error_bound=RESTART_E)
+    save_ms = {}
+
+    def manager():
+        mgr = CheckpointManager(tmp, params, anchor_every=2, chain="device",
+                                device=dev)
+        save = mgr.save
+
+        def timed(step, tree, blocking=None):
+            t0 = time.perf_counter()
+            r = save(step, tree, blocking)
+            torch.cuda.synchronize()
+            save_ms[step] = (time.perf_counter() - t0) * 1e3
+            return r
+        mgr.save = timed
+        return mgr
+
+    tr = Trainer(rmodel, tcfg, checkpoint_manager=manager(), device=dev)
+    state = tr.init_state(0)
+    state, step, first = tr.fit(state, pipe.from_step(0), n_steps=2,
+                                log=quiet)
+    tree = dict(leaves_with_keys(state.tree()))
+    lossy = [k for k, v in tree.items() if v.dtype == torch.float32
+             and v.numel() >= 4096 and not any(s in k for s in
+                                               ("scale", "step"))]
+    anchor = {k: tree[k].clone() for k in lossy}
+    save_bytes = sum(v.numel() * v.element_size() for v in tree.values())
+    (state, step, more), got = counted(torch, K, lambda: tr.fit(
+        state, pipe.from_step(2), start_step=2, n_steps=4, log=quiet))
+    check_counts("train restart delta save", got,
+                 {k: len(lossy) for k in ("change_ratio", "hist", "bitpack",
+                                          "dequant")})
+    launches["train restart delta save"] = got
+    live = {k: v.clone() for k, v in leaves_with_keys(state.tree())}
+    tr.ckpt.close()
+    del tr, state, tree
+    torch.cuda.empty_cache()
+    # the crash: a new Trainer on the same directory
+    tr2 = Trainer(rmodel, tcfg, checkpoint_manager=manager(), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (restored, start), got = counted(torch, K, lambda: tr2.restore_or_init(
+        7))
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    launches["train restart restore"] = got
+    if start != 4 or tr2.ckpt.last_restore_report:
+        raise AssertionError(f"train restart: restored step {start}, report "
+                             f"{tr2.ckpt.last_restore_report}")
+    worst = 0.0
+    for k, v in leaves_with_keys(restored.tree()):
+        want = live[k]
+        if v.dtype != want.dtype or v.shape != want.shape or \
+                v.device != want.device:
+            raise AssertionError(f"train restart: {k} restored as "
+                                 f"{v.dtype} {tuple(v.shape)} {v.device}")
+        if k not in lossy:
+            if not same_bits(torch, v, want):
+                raise AssertionError(f"train restart: lossless {k} differs")
+            continue
+        # |recon - x| <= E |previous recon| elementwise (the anchor's
+        # leaf), and an ulp or two of x for the float32 reconstruction
+        err = (v - want).abs()
+        lim = RESTART_E * anchor[k].abs() * 1.01 + want.abs() * 2.4e-7
+        if bool((err > lim).any()):
+            raise AssertionError(f"train restart: {k} outside E |prev|")
+        worst = max(worst, float((err / anchor[k].abs().clamp_min(
+            1e-30)).max()))
+    if int(restored.opt_state.step) != 4:
+        raise AssertionError("train restart: the step leaf is not 4")
+    del live, anchor
+    tr2.ckpt.close()
+    tr2.ckpt = None                    # steps 5-6 need no checkpoint
+    restored, step, resumed = tr2.fit(restored, pipe.from_step(4),
+                                      start_step=4, n_steps=6, log=quiet)
+    del restored, tr2
+    torch.cuda.empty_cache()
+    full_tr = Trainer(rmodel, tcfg, device=dev)
+    _, _, full = full_tr.fit(full_tr.init_state(0), pipe.from_step(0),
+                             n_steps=6, log=quiet)
+    del full_tr
+    shutil.rmtree(tmp)
+    diff = max(abs(a - b) / abs(b) for a, b in zip(resumed, full[4:]))
+    if step != 6 or diff > RESTART_LOSS_RTOL:
+        raise AssertionError(f"train restart: resumed losses {resumed} vs "
+                             f"uninterrupted {full[4:]}")
+    out["restart"] = dict(
+        layers=RESTART_LAYERS, save_bytes=save_bytes, lossy=len(lossy),
+        save_ms=save_ms, restore_ms=restore_ms, losses_first=first + more,
+        losses_uninterrupted=full, losses_resumed=resumed,
+        max_rel_loss_diff=diff, max_err_over_prev=worst,
+        delta_launches=launches["train restart delta save"],
+        restore_launches=got)
+    log(f"train restart: {cut.name} cut to {RESTART_LAYERS} layers, "
+        f"{save_bytes / 1e9:.3f} GB a save ({len(lossy)} lossy leaves), "
+        f"save ms {json.dumps({k: round(v, 1) for k, v in save_ms.items()})}"
+        f" (2: anchor, 4: delta, launches "
+        f"{json.dumps(launches['train restart delta save'])}), restore of "
+        f"step 4 {restore_ms:.1f} ms (launches {json.dumps(got)}), lossy "
+        f"leaves within E |anchor| (max {worst:.3e}); losses first "
+        f"{[round(x, 5) for x in first + more]}, resumed "
+        f"{[round(x, 5) for x in resumed]}, uninterrupted "
+        f"{[round(x, 5) for x in full]} (max rel diff {diff:.2e}); {card}")
+    out["peak_device_bytes"] = max(r["peak_device_bytes"]
+                                   for r in out["runs"].values())
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["card"] = card
+    log("train " + json.dumps(out))
+    return out
+
+
 def run(torch, np) -> dict:
     from repro_torch import compress_series, decompress_series, interop
     from repro_torch.core import compress, packing, ratios
@@ -1848,7 +2156,10 @@ def run(torch, np) -> dict:
     # -- 10. the model and the serving engine -------------------------------
     serve_phase(torch, np, dev, launches)
 
-    # -- 11. each kernel against its plain version, timed ------------------
+    # -- 11. training: the trainer, gradient compression, restart ---------
+    train_phase(torch, np, dev, launches)
+
+    # -- 12. each kernel against its plain version, timed ------------------
     log_clocks("before the kernel phase")
     prev_big, curr_big = big_pair(np, N_BIG)
     pairs = {"cmip": (data["cmip"][0].reshape(-1), data["cmip"][1].reshape(-1)),

@@ -6,10 +6,11 @@ paper's motivating use-case: checkpoints form a temporal series per
 tensor, so every `anchor_every`-th save is a lossless anchor and the rest
 are NUMARCK deltas against the previous *reconstructed* state.
 
-A tree is nested dicts, lists and tuples whose leaves are tensors,
-ndarrays or scalars -- a ``state_dict()`` is one.  A leaf's key is the
-``/``-joined path the reference forms from jax's tree paths (dict keys,
-sequence indices as numbers), and the step file holds the leaves in the
+A tree is nested dicts, lists, tuples and NamedTuples whose leaves are
+tensors, ndarrays or scalars -- a ``state_dict()`` is one.  A leaf's key
+is the ``/``-joined path the reference forms from jax's tree paths (dict
+keys, sequence indices as numbers, a NamedTuple's fields as ``.name``;
+``core/tree.py``), and the step file holds the leaves in the
 sorted order of those keys, so the same tree as numpy arrays gives the
 reference's step files and ``MANIFEST.json`` byte for byte.  A
 bfloat16 leaf (a tensor, or an ml_dtypes array) is a lossless anchor
@@ -48,7 +49,7 @@ from repro_torch.core.compress import (decode_anchor, decompress_step,
                                        encode_device, make_anchor)
 from repro_torch.core.container import NCKReader, NCKWriter
 from repro_torch.core.overlap import FinalizeQueue
-from repro_torch.core.tree import leaves_with_keys, nest
+from repro_torch.core.tree import leaves_with_keys, map_with_keys, nest
 from repro_torch.core.types import (NumarckParams, host_storage,
                                     storage_tensor)
 from repro_torch.obs import telemetry
@@ -329,20 +330,9 @@ class CheckpointManager:
             return nest({k: (storage_tensor(arr, dtypes[k])
                              if dtypes[k] == "bfloat16" else arr)
                          for k, arr in flat.items()})
-
-        def build(node, path: Tuple[str, ...]):
-            if isinstance(node, dict):
-                return type(node)((k, build(v, path + (str(k),)))
-                                  for k, v in node.items())
-            if isinstance(node, (list, tuple)):
-                return type(node)(build(v, path + (str(i),))
-                                  for i, v in enumerate(node))
-            if node is None:
-                return None
-            key = "/".join(path)
-            return self._leaf_like(flat[key], dtypes[key], node)
-
-        return build(template, ())
+        return map_with_keys(
+            lambda key, leaf: self._leaf_like(flat[key], dtypes[key], leaf),
+            template)
 
     def _leaf_like(self, arr: np.ndarray, dtype_name: str, leaf):
         """`arr` (storage of the recorded `dtype_name`) on `leaf`'s shape

@@ -31,13 +31,31 @@ def change_ratios(prev: torch.Tensor, curr: torch.Tensor):
 
 def ratio_range(ratios: torch.Tensor, valid: torch.Tensor):
     """(min, max) over valid ratios as host float32; (0, 0) when none are
-    valid.  One device-to-host copy."""
+    valid.  One device-to-host copy (two when an end is zero)."""
     lo = torch.where(valid, ratios, float("inf")).amin()
     hi = torch.where(valid, ratios, float("-inf")).amax()
     lo, hi, any_valid = torch.stack([lo, hi, valid.any().float()]).tolist()
     if not any_valid:
         return np.float32(0.0), np.float32(0.0)
+    if lo == 0 or hi == 0:
+        lo, hi = _signed_zero_ends(ratios, valid, lo, hi)
     return np.float32(lo), np.float32(hi)
+
+
+def _signed_zero_ends(ratios, valid, lo: float, hi: float):
+    """XLA's min and max order -0 below +0: the reference's minimum is
+    -0 when any valid ratio is -0 (x / negative prev with x == prev), its
+    maximum +0 when any is +0; torch's amin and amax keep either zero.
+    Both ends are recorded in the step (domain_lo, meta ratio_min/max)."""
+    zero = valid & (ratios == 0)
+    neg = torch.signbit(ratios)
+    neg_zero, pos_zero = torch.stack(
+        [(zero & neg).any(), (zero & ~neg).any()]).tolist()
+    if lo == 0:
+        lo = -0.0 if neg_zero else 0.0
+    if hi == 0:
+        hi = 0.0 if pos_zero else -0.0
+    return lo, hi
 
 
 def histogram_domain(lo: np.float32, hi: np.float32, error_bound: float,

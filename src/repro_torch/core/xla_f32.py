@@ -25,10 +25,15 @@ from the LLVM IR that XLA CPU emits for ``jnp.linspace``, ``jnp.exp``
 and ``jnp.log`` and agree with them on every value the tests draw.
 Only a handful of scalars per step go through here, so speed does not
 matter.
+
+``fma32_tensor`` is ``fma32`` in torch float64 operations on any device,
+for the contractions XLA CPU makes in code that runs on the card
+(gradient compression's bin centers).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 _F32 = np.float32
 _F64 = np.float64
@@ -59,6 +64,25 @@ def fma32(a, b, c) -> np.ndarray:
     out = np.where(tie_up & (e > 0), up, r)
     out = np.where(tie_dn & (e < 0), dn, out)
     return np.asarray(out, _F32)
+
+
+def fma32_tensor(a: torch.Tensor, b: torch.Tensor,
+                 c: torch.Tensor) -> torch.Tensor:
+    """``fma32`` on float32 tensors of one device, with no host sync:
+    the same float64 product, TwoSum and tie correction."""
+    a, b, c = (t.to(torch.float64) for t in (a, b, c))
+    p = a * b
+    s = p + c
+    bv = s - p
+    e = (p - (s - bv)) + (c - bv)
+    r = s.to(torch.float32)
+    up = torch.nextafter(r, torch.full_like(r, float("inf")))
+    dn = torch.nextafter(r, torch.full_like(r, float("-inf")))
+    r64 = r.to(torch.float64)
+    tie_up = (up.to(torch.float64) - s) == (s - r64)
+    tie_dn = (s - dn.to(torch.float64)) == (r64 - s)
+    out = torch.where(tie_up & (e > 0), up, r)
+    return torch.where(tie_dn & (e < 0), dn, out)
 
 
 def _fused_u_stop(num: int) -> int:
@@ -157,4 +181,4 @@ def log(x) -> np.ndarray:
     return np.asarray(out, _F32)
 
 
-__all__ = ["fma32", "linspace", "exp", "log"]
+__all__ = ["fma32", "fma32_tensor", "linspace", "exp", "log"]

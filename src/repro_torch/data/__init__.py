@@ -1,1 +1,2 @@
-"""Synthetic temporal datasets (numpy copy of ``repro.data``)."""
+"""Data layer (numpy copies of ``repro.data``): synthetic temporal
+fields and the LM token pipeline."""

@@ -1,10 +1,14 @@
 """State carried across between the port and other NUMARCK code.
 
 Plain data in and out -- dicts of numpy arrays, bytes and scalars -- so a
-step, a parameter set or a model's weights cross between the port and the
-JAX package without either importing the other.  ``step_to_fields``
-duck-types over attributes: it takes the port's ``CompressedStep`` or any
-object with the same fields (the JAX package's, for one).
+step, a parameter set, a model's weights or a train state cross between
+the port and the JAX package without either importing the other.
+``step_to_fields`` duck-types over attributes: it takes the port's
+``CompressedStep`` or any object with the same fields (the JAX
+package's, for one); so does ``train_state_from_reference`` for the
+optimizer and compression states.  A bfloat16 leaf comes out of the
+port as its uint16 bits (``.view(ml_dtypes.bfloat16)`` on the JAX side)
+and goes in as an ml_dtypes array.
 """
 from __future__ import annotations
 
@@ -12,11 +16,10 @@ import dataclasses
 from typing import Any, Dict
 
 import numpy as np
-import torch
 
 from repro_torch.core.chain import resolve_device
 from repro_torch.core.pipeline import StepMeta
-from repro_torch.core.tree import leaves_with_keys
+from repro_torch.core.tree import leaves_with_keys, map_with_keys
 from repro_torch.core.types import (CompressedStep, NumarckParams,
                                     host_storage, storage_tensor)
 
@@ -51,48 +54,85 @@ def step_from_fields(fields: Dict[str, Any]) -> CompressedStep:
     return CompressedStep(**kw)
 
 
-def _reference_key(name: str) -> str:
-    """The reference tree's key of one of the port's parameter names:
-    ``layers.3.attn.wq`` is layer 3 of ``layers/attn/wq``."""
-    parts = name.split(".")
-    if parts[0] == "layers":
-        return "/".join(["layers"] + parts[2:])
-    return "/".join(parts)
+def _to_numpy(tree):
+    return map_with_keys(lambda _, t: np.array(host_storage(t)[0]), tree)
 
 
-@torch.no_grad()
+def _to_device(tree, dev):
+    def put(_, leaf):
+        arr, dtype_name = host_storage(leaf)
+        return storage_tensor(np.array(arr), dtype_name).to(dev)
+    return map_with_keys(put, tree)
+
+
+def _reference_params(tree, cfg, dev):
+    """A reference parameter tree on `dev`, its leaves the model's: one
+    for every parameter, in its shape and dtype, and no other."""
+    from repro_torch.models import lm
+    from repro_torch.models.model import check_supported
+    check_supported(cfg)
+    params = _to_device(tree, dev)
+    want = {lm.reference_key(n) for n, _ in lm.LM(cfg, "meta")
+            .named_parameters()}
+    got = {k for k, _ in leaves_with_keys(params)}
+    if got != want:
+        raise ValueError(f"reference leaves {sorted(got - want)} have no "
+                         f"parameter in {cfg.name}, and its parameters "
+                         f"{sorted(want - got)} no leaf")
+    lm.bind_params(params, cfg)          # raises on a shape or dtype
+    return params
+
+
 def model_params_from_reference(tree, cfg, device=None):
     """The port's ``LM`` module (on `device`, CUDA unless the caller asks
     for another) holding the JAX package's parameter tree: nested dicts
     of numpy arrays whose layer leaves carry a leading L axis, bfloat16
     leaves as ml_dtypes arrays (read through their uint16 bits, so
     ml_dtypes is never imported).  Every leaf must have the shape and
-    dtype of its parameter, and every leaf is used."""
+    dtype of its parameter, and every leaf is used.  The layers'
+    parameters are views of the stacked leaves, and require no grad."""
     from repro_torch.models import lm
-    from repro_torch.models.model import check_supported
-    check_supported(cfg)
+    params = _reference_params(tree, cfg, resolve_device(device))
+    return lm.bind_params(params, cfg).requires_grad_(False)
+
+
+def model_params_to_reference(params) -> Dict:
+    """The port's ``LM`` as the JAX package's parameter tree: nested dicts
+    of numpy arrays, the layers stacked on a leading L axis (the inverse
+    of ``model_params_from_reference``)."""
+    from repro_torch.models import lm
+    return _to_numpy(lm.param_tree(params))
+
+
+def train_state_to_reference(state) -> Dict:
+    """A port ``TrainState`` as the reference's ``TrainState.tree()``:
+    {"params", "opt_state": AdamState(step, m, v)[, "gc_state":
+    GradCompState(residual)]} of numpy arrays; the NamedTuples are the
+    port's, which jax flattens and keys as it does the reference's."""
+    return _to_numpy(state.tree())
+
+
+def train_state_from_reference(tree, cfg, device=None):
+    """A port ``TrainState`` on `device` (CUDA unless the caller asks for
+    another) from the reference's ``TrainState.tree()`` as numpy
+    (``jax.device_get``): the params in its layout, checked against
+    `cfg`'s parameters leaf for leaf, and any objects with the
+    ``step``/``m``/``v`` and ``residual`` fields for the states."""
+    from repro_torch.train.gradcomp import GradCompState
+    from repro_torch.train.optim import AdamState
+    from repro_torch.train.trainer import TrainState
     dev = resolve_device(device)
-    flat = dict(leaves_with_keys(tree))
-    p = lm.LM(cfg, dev)
-    used = set()
-    for name, param in p.named_parameters():
-        key = _reference_key(name)
-        if key not in flat:
-            raise KeyError(f"the reference tree has no {key!r} for {name}")
-        arr, dtype_name = host_storage(flat[key])
-        t = storage_tensor(np.array(arr), dtype_name)
-        if name.startswith("layers."):
-            t = t[int(name.split(".")[1])]
-        if tuple(t.shape) != tuple(param.shape) or t.dtype != param.dtype:
-            raise ValueError(f"{key}: {tuple(t.shape)} {t.dtype} does not "
-                             f"fit {name} {tuple(param.shape)} {param.dtype}")
-        param.copy_(t)
-        used.add(key)
-    if set(flat) - used:
-        raise ValueError(f"reference leaves with no parameter here: "
-                         f"{sorted(set(flat) - used)}")
-    return p
+    params = _reference_params(tree["params"], cfg, dev)
+    opt = tree["opt_state"]
+    opt_state = AdamState(*(_to_device(getattr(opt, f), dev)
+                            for f in AdamState._fields))
+    gc = tree.get("gc_state")
+    gc_state = (None if gc is None
+                else GradCompState(_to_device(gc.residual, dev)))
+    return TrainState(params, opt_state, gc_state)
 
 
 __all__ = ["STEP_FIELDS", "params_from_dict", "step_to_fields",
-           "step_from_fields", "model_params_from_reference"]
+           "step_from_fields", "model_params_from_reference",
+           "model_params_to_reference", "train_state_to_reference",
+           "train_state_from_reference"]

@@ -12,18 +12,29 @@ carries its keys, shapes and dtypes: ``{"attn": {"k": (L,B,S,K,hd), "v":
 ..., "pos_map": (L,S) int32}}`` (a per-layer list for mixed-window
 stacks).  Each layer's decode writes its slice of the cache in place.
 
-MLA, MoE, SSM, the hybrid layer loop, the frontends and ``lm_loss`` wait
-for later slices (ROADMAP Queue 1, item 7); ``shd.constrain`` is dropped
-(a no-op on one device).
+Training keeps the parameters in the reference's layout (``param_tree``:
+nested dicts by the reference's keys, the layers stacked on a leading L
+axis), the layout its optimizer, gradient compression and checkpoints
+work on; ``bind_params`` gives the forward an ``LM`` whose parameters
+are views of those stacked tensors, and ``stack_layers`` stacks the
+per-layer gradients back.  ``lm_loss`` is the reference's cross-entropy;
+``remat="block"`` recomputes each layer in the backward
+(``torch.utils.checkpoint``).
+
+MLA, MoE, SSM, the hybrid layer loop and the frontends wait for later
+slices (ROADMAP Queue 1, item 7); ``shd.constrain`` is dropped (a no-op
+on one device).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.tree import leaves_with_keys, nest
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -135,20 +146,97 @@ def unembed(params: LM, cfg: ModelConfig, x):
     return torch.matmul(x, w).to(torch.float32)
 
 
-@torch.no_grad()
 def forward(params: LM, cfg: ModelConfig, tokens):
-    """-> (logits (B,T,V) f32, aux_loss)."""
+    """-> (logits (B,T,V) f32, aux_loss).  Builds a graph only for
+    parameters that require grad (training's ``bind_params``)."""
+    remat = cfg.remat == "block" and torch.is_grad_enabled()
     with L.matmul_numerics():
         x = embed_inputs(params, cfg, tokens)
         T = x.shape[1]
         positions = torch.arange(T, dtype=torch.int32, device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp, w in zip(params.layers, layer_flags(cfg)):
-            x, a = layer_apply(lp, x, cfg=cfg, positions=positions,
-                               window=int(w))
+            kw = dict(cfg=cfg, positions=positions, window=int(w))
+            if remat:
+                # keep the layer's input, recompute its inside in the
+                # backward (the reference saves only "block_out")
+                x, a = checkpoint(layer_apply, lp, x, use_reentrant=False,
+                                  **kw)
+            else:
+                x, a = layer_apply(lp, x, **kw)
             aux = aux + a
         x = L.rms_norm(params.ln_f, x, cfg.norm_eps)
         return unembed(params, cfg, x), aux
+
+
+def lm_loss(params: LM, cfg: ModelConfig, batch):
+    """Cross-entropy over next-token labels; labels == -100 are masked.
+    batch: {"tokens", "labels"} (B, T) integer tensors on the params'
+    device.  -> (loss + 0.01 * aux / L, {"loss", "aux"})."""
+    logits, aux = forward(params, cfg, batch["tokens"])
+    labels = batch["labels"].to(torch.int64)
+    logits = logits[:, -labels.shape[1]:]
+    mask = labels != -100
+    labels_safe = torch.where(mask, labels, 0)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels_safe[..., None])[..., 0]
+    loss = torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1)
+    return loss + 0.01 * aux / max(cfg.n_layers, 1), {
+        "loss": loss, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# the reference's parameter layout (training)
+# ---------------------------------------------------------------------------
+
+def reference_key(name: str) -> str:
+    """The reference tree's key of one of the port's parameter names:
+    ``layers.3.attn.wq`` is layer 3 of ``layers/attn/wq``."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        return "/".join(["layers"] + parts[2:])
+    return "/".join(parts)
+
+
+def stack_layers(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict:
+    """The reference's layout of (name, tensor) pairs in the order of an
+    ``LM``'s ``named_parameters()`` (its parameters, or values aligned
+    with them such as their gradients): nested dicts by reference key,
+    each layer leaf the layers' tensors stacked on a leading L axis (a
+    copy)."""
+    groups: Dict[str, list] = {}
+    for name, t in named:
+        groups.setdefault(reference_key(name), []).append(t)
+    return nest({k: torch.stack(v) if k.startswith("layers/") else v[0]
+                 for k, v in groups.items()})
+
+
+@torch.no_grad()
+def param_tree(params: LM) -> Dict:
+    """A copy of the module's parameters in the reference's layout."""
+    return stack_layers(params.named_parameters())
+
+
+def bind_params(tree, cfg: ModelConfig) -> LM:
+    """An ``LM`` whose parameters are views of `tree`'s tensors (the
+    reference's layout): layer i's ``attn.wq`` is
+    ``tree["layers"]["attn"]["wq"][i]``, sharing its storage, so an
+    update of the tree in place is the module's too.  They require
+    grad: the forward builds a graph to them."""
+    flat = dict(leaves_with_keys(tree))
+    p = LM(cfg, "meta")
+    for name, meta in list(p.named_parameters()):
+        t = flat[reference_key(name)]
+        if name.startswith("layers."):
+            t = t[int(name.split(".")[1])]
+        if tuple(t.shape) != tuple(meta.shape) or t.dtype != meta.dtype:
+            raise ValueError(f"{reference_key(name)}: {tuple(t.shape)} "
+                             f"{t.dtype} does not fit {name} "
+                             f"{tuple(meta.shape)} {meta.dtype}")
+        owner, _, attr = name.rpartition(".")
+        setattr(p.get_submodule(owner), attr,
+                nn.Parameter(t))
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -263,5 +351,7 @@ def _kv_to_cache(c, k, v, T: int, window: int, dt) -> None:
 
 
 __all__ = ["LM", "Layer", "init_params", "layer_flags", "layer_apply",
-           "embed_inputs", "forward", "unembed", "empty_cache",
-           "uses_layer_loop", "layer_decode", "decode_step", "prefill"]
+           "embed_inputs", "forward", "lm_loss", "reference_key",
+           "stack_layers", "param_tree", "bind_params", "unembed",
+           "empty_cache", "uses_layer_loop", "layer_decode", "decode_step",
+           "prefill"]

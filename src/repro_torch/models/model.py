@@ -1,8 +1,10 @@
-"""Public model API: --arch <id> -> Model(init/forward/prefill/decode)
+"""Public model API: --arch <id> -> Model(init/loss/forward/prefill/decode)
 (the port of the reference's ``models/model.py``, dense GQA subset).
 
 The model runs on the CUDA device unless the caller passes
-``device="cpu"``; without a GPU a CUDA device raises.  Families and
+``device="cpu"``; without a GPU a CUDA device raises.  Its parameters
+never require grad, so serving builds no graph; training binds views of
+the reference-layout tree that do (``lm.bind_params``).  Families and
 attention kinds this slice does not port raise ``NotImplementedError``
 naming their ROADMAP item.  ``input_specs``/``shape_params`` (the
 reference's dry-run stand-ins) come with the launch tooling (item 8).
@@ -59,6 +61,11 @@ class Model:
         return sum(p.numel() for p in lm.LM(self.cfg, "meta").parameters())
 
     # ---- steps -----------------------------------------------------------
+    def loss(self, params, batch):
+        """(loss, {"loss", "aux"}); a graph to `params` where they require
+        grad (``lm.bind_params``)."""
+        return lm.lm_loss(params, self.cfg, batch)
+
     def forward(self, params, batch):
         return lm.forward(params, self.cfg, batch["tokens"])
 

@@ -12,6 +12,7 @@ versions).
 """
 import json
 import os
+from typing import NamedTuple
 
 import numpy as np
 import pytest
@@ -353,3 +354,88 @@ def test_chain_fork_is_a_handle_copy(residency):
     assert not np.array_equal(f.to_host(), prev)
     f.reset()
     assert f.empty and not c.empty
+
+
+
+class _Moments(NamedTuple):
+    step: object
+    m: object
+    v: object
+
+
+class _Resid(NamedTuple):
+    residual: object
+
+
+def _nt_state(scale: float = 1.0, jax_types: bool = False) -> dict:
+    """A train-state-shaped numpy tree: NamedTuples (the reference's own
+    AdamState and GradCompState, or the port's look-alikes) beside
+    dicts, lossy leaves in each."""
+    from repro.train.gradcomp import GradCompState
+    from repro.train.optim import AdamState
+    moments, resid = ((AdamState, GradCompState) if jax_types
+                      else (_Moments, _Resid))
+    s = _state(3, scale)
+    return {"params": s["params"],
+            "opt_state": moments(np.int32(3), s["big"],
+                                 {"w": s["opt"]["m"]}),
+            "gc_state": resid({"w": s["params"]["w1"] * np.float32(0.5)})}
+
+
+def _to_torch_nt(tree):
+    """_to_torch through NamedTuples."""
+    from repro_torch.core.tree import map_with_keys
+    return map_with_keys(lambda _, x: torch.from_numpy(np.array(x)), tree)
+
+
+def test_namedtuple_keys_match_jax():
+    """A NamedTuple's fields key as jax's GetAttrKey does (``.name``),
+    in field order; map_with_keys rebuilds the NamedTuple."""
+    import jax
+
+    from repro_torch.core import tree as T
+    want = ["/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                     for k in path) for path, _ in
+            jax.tree_util.tree_flatten_with_path(_nt_state(jax_types=True))[0]]
+    got = [k for k, _ in T.leaves_with_keys(_nt_state())]
+    assert got == want
+    assert "opt_state/.step" in got and "opt_state/.v/w" in got
+    mapped = T.map_with_keys(lambda k, x: k, _nt_state())
+    assert isinstance(mapped["opt_state"], _Moments)
+    assert mapped["opt_state"].m == "opt_state/.m"
+    assert mapped["gc_state"].residual["w"] == "gc_state/.residual/w"
+
+
+@pytest.mark.parametrize("chain", ["host", "device"])
+def test_namedtuple_tree_matches_jax_and_restores(tmp_path, chain):
+    """A tree of NamedTuples through both managers (an anchor, then a
+    delta at 1 % drift): identical files; the port's restore onto a
+    NamedTuple template gives NamedTuples back, and without one the
+    reference's nested dicts with ``.name`` keys, leaf for leaf."""
+    jdir, tdir = tmp_path / "jax", tmp_path / "port"
+    jm = JManager(str(jdir), JParams(**KW), anchor_every=2, keep=10)
+    tm = CheckpointManager(str(tdir), NumarckParams(**KW), anchor_every=2,
+                           keep=10, chain=chain, device="cpu")
+    for step, scale in enumerate((1.0, 1.01)):
+        jm.save(step, _nt_state(scale, jax_types=True))
+        tm.save(step, _to_torch_nt(_nt_state(scale)))
+    want, got = _files(jdir), _files(tdir)
+    assert sorted(got) == sorted(want) and len(want) == 3
+    for name in want:
+        assert got[name] == want[name], name
+    step, tree = tm.restore_latest(template=_to_torch_nt(_nt_state()))
+    assert step == 1
+    assert isinstance(tree["opt_state"], _Moments)
+    assert isinstance(tree["gc_state"], _Resid)
+    assert tree["opt_state"].step.dtype == torch.int32
+    assert int(tree["opt_state"].step) == 3
+    _, jplain = jm.restore_latest()
+    _, plain = tm.restore_latest()
+    assert set(plain["opt_state"]) == {".step", ".m", ".v"}
+    assert [k for k, _ in _leaves(plain)] == [k for k, _ in _leaves(jplain)]
+    for (k, a), (_, b) in zip(_leaves(plain), _leaves(jplain)):
+        np.testing.assert_array_equal(a, b, err_msg=k)
+    from repro_torch.core.tree import leaves_with_keys
+    restored = dict(leaves_with_keys(tree))
+    for k, a in _leaves(plain):
+        np.testing.assert_array_equal(a, restored[k].numpy(), err_msg=k)

@@ -714,3 +714,95 @@ def test_cuda_engine_matches_cpu(cuda, tmp_path, monkeypatch, codec):
     assert e_card.last_cache["attn"]["k"].is_cuda
     np.testing.assert_array_equal(e_card.resume(max_new=4),
                                   e_cpu.resume(max_new=4))
+
+
+def grad_tensor(kind: str, seed: int = 0) -> torch.Tensor:
+    """Gradient-like tensors for the compression round trip."""
+    rng = np.random.default_rng(seed)
+    if kind == "gaussian":
+        return torch.from_numpy(rng.normal(0, 1e-2, (257, 1031))
+                                .astype(np.float32))
+    if kind == "clustered":
+        return torch.from_numpy(np.concatenate(
+            [np.zeros(30000), rng.normal(1e-2, 1e-4, 10000),
+             rng.normal(-1e-2, 1e-4, 10000)]).astype(np.float32))
+    if kind == "bf16":
+        return torch.from_numpy(rng.normal(0, 1e-3, (64, 4096))
+                                .astype(np.float32)).to(torch.bfloat16)
+    if kind == "constant":
+        return torch.full((4099,), 0.125)
+    return torch.zeros(1 << 16)
+
+
+def int_bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b_bits", [4, 6])
+@pytest.mark.parametrize("kind", ["gaussian", "clustered", "bf16",
+                                  "constant", "zero"])
+def test_cuda_quantize_dequantize_matches_cpu(cuda, kind, b_bits):
+    """Gradient compression on the card gives the CPU path's g_hat bit for
+    bit, through one histogram kernel launch; alpha within 1e-6 (a
+    float32 mean summed in another order)."""
+    from repro_torch.train import gradcomp
+
+    g = grad_tensor(kind, b_bits)
+    want, winfo = gradcomp.quantize_dequantize(g, b_bits=b_bits)
+    hist.KERNEL.launches = 0
+    got, ginfo = gradcomp.quantize_dequantize(g.to(cuda), b_bits=b_bits)
+    torch.cuda.synchronize()
+    assert hist.KERNEL.launches == 1
+    assert got.dtype == g.dtype and got.device.type == cuda.type
+    assert torch.equal(int_bits(got.cpu()), int_bits(want))
+    np.testing.assert_allclose(float(ginfo["alpha"]), float(winfo["alpha"]),
+                               rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [0, 6])
+def test_cuda_train_step_matches_cpu(cuda, bits):
+    """The reduced llama3.2-1b (float32) trained on the card and on the
+    CPU from the same state: the first step's loss within 1e-5 and its
+    parameters within two learning rates (Adam's first step is
+    g / (|g| + eps): a gradient near zero whose sign differs between the
+    two sums moves its weight by up to 2 lr, any other by ulps), and
+    three steps' losses within 1e-5; the histogram kernel once per leaf
+    per step with compression, and no kernel without."""
+    from repro_torch import interop
+    from repro_torch.core.tree import leaves_with_keys
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.model import build
+    from repro_torch.train import optim
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    model = build("llama3.2-1b", smoke=True)
+    tcfg = TrainerConfig(opt=optim.AdamWConfig(lr=1e-3, warmup_steps=1),
+                         grad_compression_bits=bits)
+    cpu_tr = Trainer(model, tcfg, device="cpu")
+    card_tr = Trainer(model, tcfg, device=cuda)
+    cpu = cpu_tr.init_state(0)
+    card = interop.train_state_from_reference(
+        interop.train_state_to_reference(cpu), model.cfg, device=cuda)
+    pipe = TokenPipeline(model.cfg.vocab_size, 33, 4)
+    batches = [pipe.batch(s) for s in range(3)]
+    n_leaves = len(list(leaves_with_keys(card.params)))
+    cpu, _, want = cpu_tr.fit(cpu, iter(batches[:1]), log=lambda *_: None)
+    for k in ops.KERNELS:
+        k.launches = 0
+    card, _, got = card_tr.fit(card, iter(batches[:1]), log=lambda *_: None)
+    torch.cuda.synchronize()
+    assert hist.KERNEL.launches == (n_leaves if bits else 0)
+    assert sum(k.launches for k in ops.KERNELS) == hist.KERNEL.launches
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    lr = float(optim.schedule(tcfg.opt, torch.tensor(1)))
+    got_p = dict(leaves_with_keys(interop.train_state_to_reference(card)))
+    for k, w in leaves_with_keys(interop.train_state_to_reference(cpu)):
+        if k.startswith("params/"):
+            assert np.abs(got_p[k] - w).max() <= 2 * lr * 1.001, k
+    _, _, want = cpu_tr.fit(cpu, iter(batches[1:]), start_step=1,
+                            log=lambda *_: None)
+    _, _, got = card_tr.fit(card, iter(batches[1:]), start_step=1,
+                            log=lambda *_: None)
+    np.testing.assert_allclose(got, want, rtol=1e-5)

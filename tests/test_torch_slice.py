@@ -165,6 +165,47 @@ def test_nck_writer_bytes_from_port_steps(series, tmp_path):
     assert paths[0].read_bytes() == paths[1].read_bytes()
 
 
+@pytest.mark.parametrize("kind", ["unchanged", "grown", "shrunk"])
+def test_signed_zero_range_matches_jax(kind, tmp_path):
+    """Steps whose extreme ratio is zero, from values that did not change,
+    half of them negative: x / negative prev is -0, and the reference's
+    min and max (XLA's, -0 below +0) record the signed zeros in
+    domain_lo and meta ratio_min/ratio_max.  The port's steps carry the
+    same signs, and so the same NCK bytes."""
+    rng = np.random.default_rng(5)
+    prev = rng.normal(0, 1, 8192).astype(np.float32)
+    curr = prev.copy()
+    moved = rng.random(prev.size) < 0.5
+    if kind == "grown":
+        curr[moved] *= np.float32(1.0005)
+    elif kind == "shrunk":
+        # every value that moved shrinks, and every unchanged one is
+        # negative: the largest ratio is -0
+        curr[moved] *= np.float32(0.9995)
+        curr[~moved] = -np.abs(curr[~moved])
+        prev[~moved] = curr[~moved]
+    series = [prev, curr]
+    want = jcompress.compress_series(series, JParams())
+    got = repro_torch.compress_series(series, repro_torch.NumarckParams(),
+                                      device="cpu")
+    _assert_steps_equal(got, want)
+    for key in ("ratio_min", "ratio_max"):
+        assert np.signbit(got[1].meta[key]) == np.signbit(want[1].meta[key])
+    assert np.signbit(got[1].domain_lo) == np.signbit(want[1].domain_lo)
+    assert np.signbit(want[1].meta["ratio_min" if kind != "shrunk"
+                                   else "ratio_max"])
+    paths = []
+    for tag, steps in (("jax", want),
+                       ("port", [JStep(**interop.step_to_fields(s))
+                                 for s in got])):
+        w = NCKWriter()
+        for i, st in enumerate(steps):
+            w.add_step(f"v/{i}", st)
+        paths.append(tmp_path / f"{tag}.nck")
+        w.write(str(paths[-1]))
+    assert paths[0].read_bytes() == paths[1].read_bytes()
+
+
 def test_params_round_trip_through_dict():
     jp = JParams(codec="bz2", b_bits=9, max_bins=4096, error_bound=2e-3)
     tp = interop.params_from_dict(jp.__dict__)
@@ -244,7 +285,9 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.distributed.pipeline, "
             "repro_torch.launch.distributed, repro_torch.obs, "
             "repro_torch.checkpoint, repro_torch.models.model, "
-            "repro_torch.serve.engine, repro_torch.configs\n"
+            "repro_torch.serve.engine, repro_torch.configs, "
+            "repro_torch.train.trainer, repro_torch.launch.train, "
+            "repro_torch.data.tokens\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
             "assert not bad, bad\n")
