@@ -44,8 +44,8 @@ Phases, each fatal on failure (exit code 1, no result line):
               the device idle share of one warm series from a
               torch.profiler trace; 4 shards under telemetry; the
               entropy process pool forked after CUDA started.
-  9. checkpoint  CheckpointManager: five async saves of two full-width
-              Llama-3.2-1B layers with their Adam moments (device chain;
+  9. checkpoint  CheckpointManager: five async saves of one full-width
+              Llama-3.2-1B layer with its Adam moments (device chain;
               kernels 1-4 once per lossy tensor per delta save), step
               files equal to a host chain's, restore onto a "meta"
               template, and a walk-back past a flipped byte.
@@ -58,6 +58,12 @@ Phases, each fatal on failure (exit code 1, no result line):
               rANS decode kernel once per v1 group of each leaf on the
               device route (rans) and no kernel with zlib; bf16 logits
               against f32 and decode_step against prefill at cosine >= 0.99.
+              The same for serve_mla (minicpm3-4b, uncut: 62 layers, MLA,
+              the latent ckv/krope cache through the decode kernel; the
+              absorbed decode against mla_decode_naive at cosine >= 0.99)
+              and serve_moe (mixtral-8x7b at full width, depth cut to 16
+              of 32 layers to fit the card; the prefill's share of
+              dropped routed choices at capacity factor 1.25).
   11. train   Trainer.fit on the card: Llama-3.2-1B at full width and depth
               (bf16, seeded on the card), 4 x 256 TokenPipeline tokens a
               step, 8 steps with gradient compression off and 8 at B = 6
@@ -70,6 +76,11 @@ Phases, each fatal on failure (exit code 1, no result line):
               width cut to 2 layers: an anchor at step 2, a delta at 4
               (kernels 1-4 once per lossy leaf), a new Trainer restores
               step 4 and trains to 6, matching the uninterrupted run.
+              Then minicpm3-4b (16 of 62 layers) and mixtral-8x7b (1 of
+              32) at full width: 4 steps at B = 6 (the histogram kernel
+              once per leaf per step), finite losses, the MoE aux > 0,
+              and quantize_dequantize of a real wkv_a / we_down gradient
+              card against CPU, bit for bit.
   12. kernels each kernel against its plain version on the card, exactly,
               at n = 42*360*240 (the CMIP step) and n = 2^26, with timings
               (median of 20 launches, CUDA events, after warm-up) beside
@@ -1283,8 +1294,8 @@ def leaves_of(tree) -> dict:
 
 def checkpoint_phase(torch, np, dev, launches: dict) -> None:
     """CheckpointManager on the card: five async saves (anchor_every=4,
-    device chain) of the parameters and Adam moments of two full-width
-    Llama-3.2-1B layers, each float leaf drifting by 1 % between saves.
+    device chain) of the parameters and Adam moments of CKPT_LAYERS
+    full-width Llama-3.2-1B layers, each float leaf drifting by 1 % between saves.
     Kernels 1-4 once per lossy tensor per delta save; step files and
     manifest identical to the same saves with a host chain; restore_latest
     onto a "meta" template exact; a byte flipped in the newest file walks
@@ -1459,11 +1470,23 @@ def checkpoint_phase(torch, np, dev, launches: dict) -> None:
 SERVE_ARCH = "llama3.2-1b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 256, 32
 COS_MIN = 0.99                     # logits' cosine similarity, every position
+F32_LAYERS = 2                     # layers in the bf16-vs-f32 check where the
+                                   # whole model's f32 copy does not fit
+# The MLA and MoE families served the same way (label, arch, decoder layers
+# kept, why the depth is cut).  Mixtral's 32 layers are 93.4 GB of bf16
+# weights: 16 of them (47.0 GB) fit one 80 GB card beside the caches.
+FAMILIES = (("serve_mla", "minicpm3-4b", None, None),
+            ("serve_moe", "mixtral-8x7b", 16,
+             "16 of 32 layers: 93.4 GB of bf16 weights do not fit one 80 GB "
+             "card"))
 
 
-def serve_config():
+def serve_config(arch: str = SERVE_ARCH, n_layers=None):
+    """`arch`'s full config, its depth cut to `n_layers` where given."""
     from repro_torch.configs import get_config
-    return get_config(SERVE_ARCH)
+    cfg = get_config(arch)
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
 
 
 def same_bits(torch, a, b) -> bool:
@@ -1482,177 +1505,11 @@ def cosines(torch, a, b):
     return (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
 
 
-def serve_phase(torch, np, dev, launches: dict) -> dict:
-    """The dense GQA model and the serving engine at Llama-3.2-1B's full
-    width (16 layers, the 128,256 x 2048 tied embedding, bf16, seeded
-    random weights made on the card).  Greedy tokens of an uninterrupted
-    generate equal generate + save_session + load_session (a new engine)
-    + resume, with zlib and with rANS; every restored leaf equals the
-    saved one bit for bit; load_session launches rans_decode once per
-    (length, lanes) group of v1 blobs of each leaf on the device route
-    and no other kernel (none with zlib); the card's file loads on the
-    CPU to the same bytes; bf16 prefill logits against the same weights
-    in f32, and decode_step at T against prefill of T + 1, at cosine
-    >= COS_MIN at every position.  Times prefill, decode, save and load,
-    and the port's chunked_sdpa against torch's SDPA on the prefill's
-    shapes (a yardstick; the port never calls SDPA)."""
-    import copy
-
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    from repro_torch.core.container import NCKReader
-    from repro_torch.kernels import ops
-    from repro_torch.models import layers as L
-    from repro_torch.models import lm
-    from repro_torch.models.model import Model
-    from repro_torch.serve.engine import Engine, load_cache
-
-    card = card_line()
-    cfg = serve_config()
-    model = Model(cfg)
-    B, T, NEW = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
-    s_max = T + 2 * NEW
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t_phase = time.perf_counter()
-    t0 = time.perf_counter()
-    params = model.init(0, device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in params.parameters())
-    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
-    prompts = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (B, T)).astype(np.int32)
-    kv_bytes = (2 * cfg.n_layers * B * s_max * cfg.n_kv_heads * cfg.head_dim
-                * 2)
-    log(f"serve: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}: {n_params} "
-        f"parameters, {w_bytes / 1e9:.3f} GB, made on the card in "
-        f"{init_s:.1f} s; {B} requests x {T} prompt tokens, s_max {s_max}, "
-        f"KV cache {kv_bytes / 1e6:.1f} MB")
-
-    # Uninterrupted: 2 * NEW tokens (the reference stream), then the
-    # timed warm prefill and decode, then one prefill and 8 decode steps
-    # under torch.profiler for the device idle share.
-    eng = Engine(model, params, B, s_max, keep_session=True, device=dev)
-    full = eng.generate(prompts, max_new=2 * NEW)
-    eng.stats = type(eng.stats)()
-    warm = eng.generate(prompts, max_new=NEW)
-    if not np.array_equal(warm, full[:, :NEW]):
-        raise AssertionError("serve: a second generate gave other tokens")
-    st = eng.stats
-    times = {"prefill_ms": st.prefill_s * 1e3,
-             "decode_ms_per_token": st.decode_s / NEW * 1e3,
-             "tokens_per_s": st.tokens_per_s, "save_ms": {}, "load_ms": {}}
-    OUT.mkdir(exist_ok=True)
-    times["idle_share"] = {}
-    for w, fn in (("prefill", lambda: eng.generate(prompts, max_new=0)),
-                  ("decode", lambda: eng.resume(max_new=8))):
-        tpath = str(OUT / f"profile_serve_{w}.json")
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            with record_function(f"chip_smoke.{w}"):
-                fn()
-        prof.export_chrome_trace(tpath)
-        share = idle_share(tpath, f"chip_smoke.{w}")
-        with open(tpath, "rb") as f, gzip.open(tpath + ".gz", "wb") as g:
-            shutil.copyfileobj(f, g)
-        os.remove(tpath)
-        times["idle_share"][w] = share["idle_share"]
-        log(f"device idle share, serve {w}: {share['idle_share']:.4f} of a "
-            f"{share['window_ms']:.1f} ms window (kernels busy "
-            f"{share['kernel_busy_ms']:.2f} ms in {share['kernels']} "
-            f"kernels); top kernels ms {json.dumps(share['top_kernels_ms'])}"
-            f"; trace {tpath}.gz; {card}")
-    del eng
-
-    tmp = tempfile.mkdtemp()
-    for codec in ("zlib", "rans"):
-        saver = Engine(model, params, B, s_max, keep_session=True,
-                       device=dev)
-        first = saver.generate(prompts, max_new=NEW)
-        path = os.path.join(tmp, f"session_{codec}.nck")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        stats, got = counted(torch, ops.KERNELS,
-                             lambda: saver.save_session(path, codec=codec))
-        times["save_ms"][codec] = (time.perf_counter() - t0) * 1e3
-        check_counts(f"serve save {codec}", got, {})
-        saved = saver._session.to_host()
-        del saver
-        eng = Engine(model, params, B, s_max, device=dev)
-        eng.generate(prompts, max_new=1)            # records the template
-        r = NCKReader(path)
-        steps = [r.read_step(v) for v in r.step_names()]
-        t0 = time.perf_counter()
-        _, got = counted(torch, ops.KERNELS, lambda: eng.load_session(path))
-        times["load_ms"][codec] = (time.perf_counter() - t0) * 1e3
-        want = read_launches(steps)
-        check_counts(f"serve load {codec}", got, want)
-        if codec == "rans" and not want["rans_decode"]:
-            raise AssertionError("serve rans: no leaf took the decode "
-                                 "kernel's route")
-        launches[f"serve load {codec}"] = got
-        restored = dict(tree_items(eng._session.tree))
-        for key, leaf in tree_items(saved):
-            if not same_bits(torch, restored[key], leaf):
-                raise AssertionError(f"serve {codec}: restored leaf {key} "
-                                     "differs from the saved one")
-            if restored[key].device != params.embed.device:
-                raise AssertionError(f"serve {codec}: {key} restored on "
-                                     f"{restored[key].device}")
-        cpu = dict(tree_items(load_cache(path, device="cpu")))
-        for key, leaf in tree_items(saved):
-            if not same_bits(torch, cpu[key], leaf):
-                raise AssertionError(f"serve {codec}: the CPU load of {key} "
-                                     "differs")
-        rest = eng.resume(max_new=NEW)
-        if not np.array_equal(np.concatenate([first, rest], axis=1), full):
-            raise AssertionError(f"serve {codec}: generate + save + load + "
-                                 "resume differs from the uninterrupted "
-                                 "stream")
-        log(f"serve {codec}: {stats['orig_bytes']} bytes -> "
-            f"{stats['comp_bytes']} ({stats['orig_bytes'] / stats['comp_bytes']:.3f}"
-            f"x), save_session {times['save_ms'][codec]:.1f} ms, "
-            f"load_session {times['load_ms'][codec]:.1f} ms, launches "
-            f"{json.dumps(got)}; restored bit-exact, the CPU load too; "
-            f"resume equal to the uninterrupted {2 * NEW} tokens")
-        del eng
-    shutil.rmtree(tmp)
-
-    # Numerics: bf16 against the same weights in f32, full-sequence logits.
-    tokens = torch.from_numpy(prompts.astype(np.int64)).to(dev)
-    logits16, _ = lm.forward(params, cfg, tokens)
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    params32 = copy.deepcopy(params).to(torch.float32)
-    logits32, _ = lm.forward(params32, cfg32, tokens)
-    cos = cosines(torch, logits16, logits32)
-    num = {"cos_min_bf16_vs_f32": float(cos.min()),
-           "max_abs_diff_bf16_vs_f32": float(
-               (logits16 - logits32).abs().max())}
-    del params32, logits32, logits16
-    if num["cos_min_bf16_vs_f32"] < COS_MIN:
-        raise AssertionError(f"serve numerics: bf16 against f32 logits, "
-                             f"cosine {num['cos_min_bf16_vs_f32']:.5f}")
-    # Teacher forcing: decode_step at T after a prefill of T tokens
-    # against the last position of a prefill of T + 1.
-    nxt = torch.from_numpy(full[:, :1].astype(np.int64)).to(dev)
-    _, cache, pos = lm.prefill(params, cfg, tokens, s_max=s_max)
-    step_logits, _ = lm.decode_step(params, cfg, cache, nxt, pos)
-    pre_logits, _, _ = lm.prefill(params, cfg,
-                                  torch.cat([tokens, nxt], dim=1),
-                                  s_max=s_max)
-    cos = cosines(torch, step_logits, pre_logits)
-    num["cos_min_decode_vs_prefill"] = float(cos.min())
-    num["max_abs_diff_decode_vs_prefill"] = float(
-        (step_logits - pre_logits).abs().max())
-    if num["cos_min_decode_vs_prefill"] < COS_MIN:
-        raise AssertionError(f"serve numerics: decode_step against prefill, "
-                             f"cosine {num['cos_min_decode_vs_prefill']:.5f}")
-    del cache
-
-    # The port's chunked_sdpa against torch's SDPA on the prefill's shapes.
+def sdpa_yardstick(torch, dev, cfg, L, num: dict) -> dict:
+    """The port's chunked_sdpa against torch's SDPA on the prefill's
+    shapes (a yardstick; the port never calls SDPA): their ms, and the
+    largest difference into `num`."""
+    B, T = SERVE_BATCH, SERVE_PROMPT
     gen = torch.Generator(device=dev).manual_seed(2)
     dt = L.cdtype(cfg)
     q = torch.randn((B, T, cfg.n_heads, cfg.head_dim), generator=gen,
@@ -1673,16 +1530,343 @@ def serve_phase(torch, np, dev, launches: dict) -> dict:
             is_causal=True, enable_gqa=True).transpose(1, 2)
 
     with L.matmul_numerics():
-        times["chunked_sdpa_ms"] = time_ms(torch, ours)
-        times["sdpa_ms"] = time_ms(torch, sdpa)
+        times = {"chunked_sdpa_ms": time_ms(torch, ours),
+                 "sdpa_ms": time_ms(torch, sdpa)}
         num["max_abs_diff_chunked_vs_sdpa"] = float(
             (ours().float() - sdpa().float()).abs().max())
-    out = dict(arch=cfg.name, params=n_params, weight_bytes=w_bytes,
+    return times
+
+
+def moe_drops(torch, lm, L, params, cfg, tokens, s_max, label) -> dict:
+    """The share of routed (token, slot) choices one prefill drops at the
+    config's capacity factor (``moe_route``'s keep), and for each layer:
+    its drop share, the busiest expert's share of the choices (1/E when
+    balanced), the load-balance loss (top-k when balanced) and the
+    coherence of the router's input, |mean_t x_t| / mean_t |x_t| per
+    sequence (1 when every token's hidden state points one way)."""
+    rows, kept = [], []
+    route = L.moe_route
+    E, k = cfg.n_experts, cfg.moe_top_k
+
+    def recording(p, x, c):
+        out = route(p, x, c)
+        probs, top_e, keep = out[0], out[1], out[5]
+        onehot = torch.nn.functional.one_hot(top_e, E)
+        load = onehot.sum(2).float().mean(1) / k               # (B, E)
+        xf = x.float()
+        coh = xf.mean(1).norm(dim=-1) / xf.norm(dim=-1).mean(1)
+        kept.append((int(keep.sum()), keep.numel()))
+        rows.append({"drop_share": 1 - kept[-1][0] / kept[-1][1],
+                     "busiest_expert_share": float(load.amax(-1).mean()),
+                     "aux": float(L._load_balance_loss(probs, onehot, E)),
+                     "coherence": float(coh.mean())})
+        return out
+    L.moe_route = recording
+    try:
+        lm.prefill(params, cfg, tokens, s_max=s_max)
+    finally:
+        L.moe_route = route
+    n = sum(c for _, c in kept)
+    out = {"moe_drop_share": 1 - sum(k for k, _ in kept) / n,
+           "moe_cap": max(1, int(tokens.shape[1] * cfg.moe_top_k
+                                 * cfg.capacity_factor / cfg.n_experts)),
+           "moe_aux_mean": sum(r["aux"] for r in rows) / len(rows),
+           "moe_layers": rows}
+    log(f"{label}: the prefill drops {out['moe_drop_share']:.5f} of {n} "
+        f"routed choices over {len(kept)} layers (capacity {out['moe_cap']} "
+        f"a slot, factor {cfg.capacity_factor}); the seeded model's mean "
+        f"aux {out['moe_aux_mean']:.5f}; by layer (drop share, busiest "
+        f"expert's share, aux, coherence): "
+        + json.dumps([[r["drop_share"], r["busiest_expert_share"], r["aux"],
+                       r["coherence"]] for r in rows]))
+    return out
+
+
+def bf16_vs_f32(torch, lm, L, params, cfg, tokens, n_layers: int) -> dict:
+    """bf16 forward logits against the same weights in f32, the first
+    `n_layers` layers of both (embedding and head kept).  A MoE's f32
+    run takes the bf16 run's routes at the config's capacity (experts,
+    slot positions, kept choices; the f32 router's weights of those
+    experts): under capacity drops a bf16 tie of the priority weights
+    that f32 breaks otherwise keeps another choice, which is routing,
+    not arithmetic.  The share of routed choices whose own f32 route
+    (slot or keep) differs is reported."""
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+
+    def sub(c, cast):
+        p = lm.LM(c, device="meta")
+        p.load_state_dict({
+            k: cast(v) for k, v in params.state_dict().items()
+            if not k.startswith("layers.")
+            or int(k.split(".")[1]) < n_layers}, assign=True)
+        return p
+    routes, differ = [], []
+    route = L.moe_route
+
+    def record(p, x, c):
+        out = route(p, x, c)
+        routes.append((out[1], out[2], out[4], out[5]))
+        return out
+
+    def replay(p, x, c):
+        probs, _, slot_e, _, pos, keep, cap = route(p, x, c)
+        r_top, r_slot, r_pos, r_keep = routes[len(differ)]
+        differ.append(((slot_e != r_slot) | (keep != r_keep)).float().mean())
+        top_p = torch.gather(probs, -1, r_top)
+        top_p = (top_p / torch.sum(top_p, -1, keepdim=True)).to(x.dtype)
+        slot_p = torch.repeat_interleave(top_p, c.moe_ep_split, dim=-1)
+        return probs, r_top, r_slot, slot_p, r_pos, r_keep, cap
+    try:
+        L.moe_route = record
+        logits16, _ = lm.forward(sub(cut, lambda v: v), cut, tokens)
+        cut32 = dataclasses.replace(cut, dtype="float32")
+        p32 = sub(cut32, lambda v: v.to(torch.float32))
+        L.moe_route = replay
+        logits32, _ = lm.forward(p32, cut32, tokens)
+    finally:
+        L.moe_route = route
+    cos = cosines(torch, logits16, logits32)
+    out = {"bf16_vs_f32_layers": n_layers,
+           "cos_min_bf16_vs_f32": float(cos.min()),
+           "max_abs_diff_bf16_vs_f32": float(
+               (logits16 - logits32).abs().max())}
+    if differ:
+        out["moe_f32_route_differ_share"] = float(sum(differ) / len(differ))
+    return out
+
+
+def serve_phase(torch, np, dev, launches: dict, label: str = "serve",
+                arch: str = SERVE_ARCH, n_layers=None, cut=None) -> dict:
+    """A model and the serving engine at the arch's full width (bf16,
+    seeded random weights made on the card; the depth cut to `n_layers`
+    where `cut` says why): Llama-3.2-1B (dense GQA, 16 layers, the
+    128,256 x 2048 tied embedding), and the FAMILIES.  Greedy tokens of
+    an uninterrupted generate equal generate + save_session +
+    load_session (a new engine) + resume, with zlib and with rANS; every
+    restored leaf equals the saved one bit for bit; load_session
+    launches rans_decode once per (length, lanes) group of v1 blobs of
+    each leaf on the device route (the attention cache's k and v, or
+    MLA's latent ckv and krope, among them) and no other kernel (none
+    with zlib); the card's file loads on the CPU to the same bytes;
+    decode_step at T against prefill of T + 1 at cosine >= COS_MIN at
+    every position (a MoE with a drop-free capacity for this check).
+    bf16 forward logits against the same weights in f32 at cosine >=
+    COS_MIN (the whole model where its f32 copy fits, else the first
+    F32_LAYERS layers; a MoE at the config's capacity, its f32 run on the
+    bf16 routes).  MLA: the absorbed decode against the expanded
+    mla_decode_naive on a step's logits.  MoE: the share of routed
+    choices the prefill drops at the config's capacity factor, and each
+    layer's drop share, expert load, aux and router-input coherence.  Times
+    prefill, decode, save and load; for the dense model also the port's
+    chunked_sdpa against torch's SDPA on the prefill's shapes (a
+    yardstick; the port never calls SDPA)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.core import compress
+    from repro_torch.core.container import NCKReader
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import Engine, load_cache
+
+    card = card_line()
+    cfg = serve_config(arch, n_layers)
+    model = Model(cfg)
+    B, T, NEW = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    s_max = T + 2 * NEW
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, T)).astype(np.int32)
+    kv_bytes = sum(v.numel() * v.element_size() for _, v in tree_items(
+        lm.empty_cache(cfg, B, s_max, device="meta")))
+    shape = (f"MLA ranks q {cfg.q_lora_rank} kv {cfg.kv_lora_rank}, qk "
+             f"{cfg.qk_nope_dim}+{cfg.qk_rope_dim}, v {cfg.v_head_dim}"
+             if cfg.attn_kind == "mla" else f"heads of {cfg.head_dim}")
+    moe = (f", {cfg.n_experts} experts top-{cfg.moe_top_k} split "
+           f"{cfg.moe_ep_split}, capacity factor {cfg.capacity_factor}"
+           if cfg.n_experts else "")
+    log(f"{label}: {cfg.name}, {cfg.n_layers} layers"
+        f"{' (' + cut + ')' if cut else ''}, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {shape}, d_ff {cfg.d_ff}"
+        f"{moe}, vocab {cfg.vocab_size}, {cfg.dtype}: {n_params} "
+        f"parameters, {w_bytes / 1e9:.3f} GB, made on the card in "
+        f"{init_s:.1f} s; {B} requests x {T} prompt tokens, s_max {s_max}, "
+        f"cache {kv_bytes / 1e6:.1f} MB")
+
+    # Uninterrupted: 2 * NEW tokens (the reference stream), then the
+    # timed warm prefill and decode, then one prefill and 8 decode steps
+    # under torch.profiler for the device idle share.
+    eng = Engine(model, params, B, s_max, keep_session=True, device=dev)
+    full = eng.generate(prompts, max_new=2 * NEW)
+    eng.stats = type(eng.stats)()
+    warm = eng.generate(prompts, max_new=NEW)
+    if not np.array_equal(warm, full[:, :NEW]):
+        raise AssertionError(f"{label}: a second generate gave other "
+                             "tokens")
+    st = eng.stats
+    times = {"prefill_ms": st.prefill_s * 1e3,
+             "decode_ms_per_token": st.decode_s / NEW * 1e3,
+             "tokens_per_s": st.tokens_per_s, "save_ms": {}, "load_ms": {}}
+    OUT.mkdir(exist_ok=True)
+    times["idle_share"] = {}
+    for w, fn in (("prefill", lambda: eng.generate(prompts, max_new=0)),
+                  ("decode", lambda: eng.resume(max_new=8))):
+        tpath = str(OUT / f"profile_{label}_{w}.json")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function(f"chip_smoke.{w}"):
+                fn()
+        prof.export_chrome_trace(tpath)
+        share = idle_share(tpath, f"chip_smoke.{w}")
+        with open(tpath, "rb") as f, gzip.open(tpath + ".gz", "wb") as g:
+            shutil.copyfileobj(f, g)
+        os.remove(tpath)
+        times["idle_share"][w] = share["idle_share"]
+        log(f"device idle share, {label} {w}: {share['idle_share']:.4f} of a "
+            f"{share['window_ms']:.1f} ms window (kernels busy "
+            f"{share['kernel_busy_ms']:.2f} ms in {share['kernels']} "
+            f"kernels); top kernels ms {json.dumps(share['top_kernels_ms'])}"
+            f"; trace {tpath}.gz; {card}")
+    del eng
+
+    tmp = tempfile.mkdtemp()
+    for codec in ("zlib", "rans"):
+        saver = Engine(model, params, B, s_max, keep_session=True,
+                       device=dev)
+        first = saver.generate(prompts, max_new=NEW)
+        path = os.path.join(tmp, f"session_{codec}.nck")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats, got = counted(torch, ops.KERNELS,
+                             lambda: saver.save_session(path, codec=codec))
+        times["save_ms"][codec] = (time.perf_counter() - t0) * 1e3
+        check_counts(f"{label} save {codec}", got, {})
+        saved = saver._session.to_host()
+        del saver
+        eng = Engine(model, params, B, s_max, device=dev)
+        eng.generate(prompts, max_new=1)            # records the template
+        r = NCKReader(path)
+        steps = [r.read_step(v) for v in r.step_names()]
+        names = json.loads(bytes(r.read_array("__names__")).decode())
+        routed = sorted(names[v] for v, st in zip(r.step_names(), steps)
+                        if compress.device_decode_route(st))
+        t0 = time.perf_counter()
+        _, got = counted(torch, ops.KERNELS, lambda: eng.load_session(path))
+        times["load_ms"][codec] = (time.perf_counter() - t0) * 1e3
+        want = read_launches(steps)
+        check_counts(f"{label} load {codec}", got, want)
+        cache_keys = {f"cache/attn/{k}" for k in (
+            ("ckv", "krope") if cfg.attn_kind == "mla" else ("k", "v"))}
+        if codec == "rans" and not cache_keys <= set(routed):
+            raise AssertionError(f"{label} rans: the decode kernel's route "
+                                 f"took {routed}, not {sorted(cache_keys)}")
+        launches[f"{label} load {codec}"] = got
+        restored = dict(tree_items(eng._session.tree))
+        for key, leaf in tree_items(saved):
+            if not same_bits(torch, restored[key], leaf):
+                raise AssertionError(f"{label} {codec}: restored leaf {key} "
+                                     "differs from the saved one")
+            if restored[key].device != params.embed.device:
+                raise AssertionError(f"{label} {codec}: {key} restored on "
+                                     f"{restored[key].device}")
+        cpu = dict(tree_items(load_cache(path, device="cpu")))
+        for key, leaf in tree_items(saved):
+            if not same_bits(torch, cpu[key], leaf):
+                raise AssertionError(f"{label} {codec}: the CPU load of "
+                                     f"{key} differs")
+        rest = eng.resume(max_new=NEW)
+        if not np.array_equal(np.concatenate([first, rest], axis=1), full):
+            raise AssertionError(f"{label} {codec}: generate + save + load "
+                                 "+ resume differs from the uninterrupted "
+                                 "stream")
+        times.setdefault("session_bytes", {})[codec] = dict(
+            orig=stats["orig_bytes"], comp=stats["comp_bytes"])
+        log(f"{label} {codec}: {stats['orig_bytes']} bytes -> "
+            f"{stats['comp_bytes']} ({stats['orig_bytes'] / stats['comp_bytes']:.3f}"
+            f"x), save_session {times['save_ms'][codec]:.1f} ms, "
+            f"load_session {times['load_ms'][codec]:.1f} ms, launches "
+            f"{json.dumps(got)} (device route: {routed}); restored "
+            f"bit-exact, the CPU load too; resume equal to the "
+            f"uninterrupted {2 * NEW} tokens")
+        del eng
+    shutil.rmtree(tmp)
+
+    tokens = torch.from_numpy(prompts.astype(np.int64)).to(dev)
+    num = {}
+    # bf16 against the same weights in f32: the whole model where its f32
+    # copy fits beside it, else the first F32_LAYERS layers.
+    fits = 2 * w_bytes < 0.3 * torch.cuda.get_device_properties(
+        dev).total_memory
+    num = bf16_vs_f32(torch, lm, L, params, cfg, tokens,
+                      cfg.n_layers if fits else F32_LAYERS)
+    torch.cuda.empty_cache()
+    if num["cos_min_bf16_vs_f32"] < COS_MIN:
+        raise AssertionError(f"{label} numerics: bf16 against f32 logits "
+                             f"({num['bf16_vs_f32_layers']} layers), "
+                             f"cosine {num['cos_min_bf16_vs_f32']:.5f}")
+    # Teacher forcing: decode_step at T after a prefill of T tokens
+    # against the last position of a prefill of T + 1 (a MoE at a
+    # drop-free capacity: the prefill would drop choices decode keeps).
+    chk = (dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                               / cfg.moe_top_k) if cfg.n_experts else cfg)
+    nxt = torch.from_numpy(full[:, :1].astype(np.int64)).to(dev)
+    _, cache, pos = lm.prefill(params, chk, tokens, s_max=s_max)
+    if cfg.attn_kind == "mla":
+        # the expanded decode from a copy of the same cache
+        naive_cache = {"attn": {k: v.clone()
+                                for k, v in cache["attn"].items()}}
+        absorbed = L.mla_decode
+        L.mla_decode = L.mla_decode_naive
+        try:
+            naive_logits, _ = lm.decode_step(params, chk, naive_cache, nxt,
+                                             pos)
+        finally:
+            L.mla_decode = absorbed
+        del naive_cache
+    step_logits, _ = lm.decode_step(params, chk, cache, nxt, pos)
+    pre_logits, _, _ = lm.prefill(params, chk,
+                                  torch.cat([tokens, nxt], dim=1),
+                                  s_max=s_max)
+    cos = cosines(torch, step_logits, pre_logits)
+    num["cos_min_decode_vs_prefill"] = float(cos.min())
+    num["max_abs_diff_decode_vs_prefill"] = float(
+        (step_logits - pre_logits).abs().max())
+    if num["cos_min_decode_vs_prefill"] < COS_MIN:
+        raise AssertionError(f"{label} numerics: decode_step against "
+                             f"prefill, cosine "
+                             f"{num['cos_min_decode_vs_prefill']:.5f}")
+    if cfg.attn_kind == "mla":
+        cos = cosines(torch, step_logits, naive_logits)
+        num["cos_min_absorbed_vs_naive"] = float(cos.min())
+        num["max_abs_diff_absorbed_vs_naive"] = float(
+            (step_logits - naive_logits).abs().max())
+        del naive_logits
+        if num["cos_min_absorbed_vs_naive"] < COS_MIN:
+            raise AssertionError(f"{label} numerics: the absorbed MLA decode "
+                                 f"against mla_decode_naive, cosine "
+                                 f"{num['cos_min_absorbed_vs_naive']:.5f}")
+    del cache, step_logits, pre_logits
+    if cfg.n_experts:
+        num.update(moe_drops(torch, lm, L, params, cfg, tokens, s_max, label))
+    if cfg.attn_kind == "gqa" and not cfg.n_experts:
+        times.update(sdpa_yardstick(torch, dev, cfg, L, num))
+    out = dict(arch=cfg.name, layers=cfg.n_layers,
+               layers_full=serve_config(arch).n_layers, depth_cut=cut,
+               params=n_params, weight_bytes=w_bytes,
                batch=B, prompt=T, new=NEW, s_max=s_max, kv_bytes=kv_bytes,
                **times, **num,
                peak_device_bytes=torch.cuda.max_memory_allocated(),
                phase_s=time.perf_counter() - t_phase, card=card)
-    log("serve " + json.dumps(out))
+    log(f"{label} " + json.dumps(out))
     return out
 
 
@@ -1701,6 +1885,16 @@ GRAD_LEAVES = ("layers/attn/wk", "layers/attn/wo", "layers/ln_attn/scale",
 RESTART_LAYERS, RESTART_E = 2, 1e-4
 RESTART_LOSS_RTOL = 1e-3           # resumed against uninterrupted (PERF.md)
 STEP_LOSS_RTOL = 1e-5              # one f32 smoke step, card against CPU
+# The MLA and MoE families trained at full width, their depth cut to fit
+# the optimizer state (about 18 bytes a parameter: bf16 weights and grads,
+# the stacked grads, f32 m, v and residual): minicpm3-4b's 16 of 62 layers
+# (1.38 G parameters, ~25 GB), mixtral-8x7b's 1 of 32 (1.71 G, ~31 GB; 2
+# layers would be ~57 GB before activations).  Each runs TRAIN_FAMILY_STEPS
+# steps at B = TRAIN_BITS; `leaf`'s real gradient goes through
+# quantize_dequantize on the card and on the CPU.
+TRAIN_FAMILIES = (("minicpm3-4b", 16, "layers/attn/wkv_a"),
+                  ("mixtral-8x7b", 1, "layers/mlp/we_down"))
+TRAIN_FAMILY_STEPS = 4
 
 
 def train_config(bits: int, **kw):
@@ -1728,7 +1922,8 @@ def train_phase(torch, np, dev, launches: dict) -> dict:
     at full width cut to RESTART_LAYERS layers: an anchor at step 2, a
     delta at 4 through kernels 1-4 once per lossy leaf, a new Trainer
     restores step 4 (the step exact, moments within E of the anchor's)
-    and trains steps 5-6 to the uninterrupted run's losses."""
+    and trains steps 5-6 to the uninterrupted run's losses.  (4) The
+    TRAIN_FAMILIES (``family_train``)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch import interop
@@ -1976,9 +2171,90 @@ def train_phase(torch, np, dev, launches: dict) -> dict:
         f"{[round(x, 5) for x in full]} (max rel diff {diff:.2e}); {card}")
     out["peak_device_bytes"] = max(r["peak_device_bytes"]
                                    for r in out["runs"].values())
+
+    # -- (4) the MLA and MoE families, depth cut -------------------------
+    out["families"] = {arch: family_train(torch, np, dev, launches, arch,
+                                          n_layers, leaf, card)
+                       for arch, n_layers, leaf in TRAIN_FAMILIES}
     out["phase_s"] = time.perf_counter() - t_phase
     out["card"] = card
     log("train " + json.dumps(out))
+    return out
+
+
+def family_train(torch, np, dev, launches: dict, arch: str, n_layers: int,
+                 leaf: str, card: str) -> dict:
+    """`arch` at full width, `n_layers` decoder layers, bf16, seeded on
+    the card: TRAIN_FAMILY_STEPS steps of Trainer.fit with gradient
+    compression at B = TRAIN_BITS (the histogram kernel once per leaf --
+    3-D MLA projections and slot-wise expert stacks among them -- per
+    step, no other kernel), finite losses; the MoE's aux loss finite and
+    > 0 on the next batch; that batch's gradient of `leaf` through
+    quantize_dequantize on the card (one histogram launch) and on the
+    CPU, bit for bit.  Step ms, tokens/s, peak memory."""
+    from repro_torch.core.tree import leaves_with_keys
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import hist, ops
+    from repro_torch.models.model import Model
+    from repro_torch.train import gradcomp
+    from repro_torch.train.trainer import Trainer, loss_and_grads
+
+    cfg = serve_config(arch, n_layers)
+    model = Model(cfg)
+    label = f"train {arch} B={TRAIN_BITS}"
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ + 1, TRAIN_BATCH, seed=0)
+    tr = Trainer(model, train_config(TRAIN_BITS), device=dev)
+    state = tr.init_state(0)
+    n_leaves = len(list(leaves_with_keys(state.params)))
+    (state, step, losses), got = counted(torch, ops.KERNELS, lambda: tr.fit(
+        state, pipe.from_step(0), n_steps=TRAIN_FAMILY_STEPS, log=quiet))
+    check_counts(label, got, {"hist": TRAIN_FAMILY_STEPS * n_leaves})
+    launches[label] = got
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: losses {losses}")
+    times = list(tr._times)
+    step_ms = statistics.median(times[1:]) * 1e3
+    _, met, g = loss_and_grads(model, state.params, {
+        k: torch.as_tensor(v, device=dev)
+        for k, v in pipe.batch(step).items()})
+    aux = float(met["aux"])
+    if cfg.n_experts and not (np.isfinite(aux) and aux > 0):
+        raise AssertionError(f"{label}: the MoE aux loss is {aux}")
+    grad = dict(leaves_with_keys(g))[leaf].float()
+    del g, state, tr
+    hist.KERNEL.launches = 0
+    qd, qinfo = gradcomp.quantize_dequantize(grad, b_bits=TRAIN_BITS)
+    torch.cuda.synchronize()
+    n_launch = hist.KERNEL.launches
+    want, winfo = gradcomp.quantize_dequantize(grad.cpu(), b_bits=TRAIN_BITS)
+    if n_launch != 1 or not torch.equal(qd.cpu().view(torch.int32),
+                                        want.view(torch.int32)):
+        raise AssertionError(f"{label} gradcomp {leaf}: the card differs "
+                             f"from the CPU ({n_launch} launches)")
+    peak = torch.cuda.max_memory_allocated()
+    out = dict(arch=arch, layers=n_layers, params=model.param_count(),
+               leaves=n_leaves, losses=losses, aux=aux, step_ms=step_ms,
+               first_step_ms=times[0] * 1e3,
+               step_ms_all=[round(t * 1e3, 2) for t in times],
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
+               peak_device_bytes=peak, launches=got,
+               gradcomp_leaf=dict(key=leaf, shape=list(grad.shape),
+                                  alpha=float(qinfo["alpha"]),
+                                  alpha_cpu=float(winfo["alpha"])))
+    del grad, qd, want
+    torch.cuda.empty_cache()
+    log(f"{label}: {cfg.name} full width, {n_layers} of "
+        f"{serve_config(arch).n_layers} layers, {out['params']} parameters, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: losses "
+        f"{[round(x, 4) for x in losses]}, aux {aux:.5f}, step "
+        f"{step_ms:.1f} ms (median of steps 2-{TRAIN_FAMILY_STEPS}), "
+        f"{out['tokens_per_s']:.0f} tokens/s, peak {peak / 1e9:.2f} GB, "
+        f"launches {json.dumps(got)} ({n_leaves} leaves a step); "
+        f"quantize_dequantize of {leaf} {tuple(out['gradcomp_leaf']['shape'])}"
+        f" card against CPU bit-exact, one histogram launch; {card}")
     return out
 
 
@@ -2153,8 +2429,11 @@ def run(torch, np) -> dict:
     # -- 9. the checkpoint manager ----------------------------------------
     checkpoint_phase(torch, np, dev, launches)
 
-    # -- 10. the model and the serving engine -------------------------------
+    # -- 10. the models and the serving engine -----------------------------
     serve_phase(torch, np, dev, launches)
+    for label, arch, n_layers, cut in FAMILIES:
+        serve_phase(torch, np, dev, launches, label, arch, n_layers, cut)
+        torch.cuda.empty_cache()
 
     # -- 11. training: the trainer, gradient compression, restart ---------
     train_phase(torch, np, dev, launches)

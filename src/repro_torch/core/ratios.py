@@ -29,16 +29,24 @@ def change_ratios(prev: torch.Tensor, curr: torch.Tensor):
     return ratios, valid
 
 
-def ratio_range(ratios: torch.Tensor, valid: torch.Tensor):
-    """(min, max) over valid ratios as host float32; (0, 0) when none are
-    valid.  One device-to-host copy (two when an end is zero)."""
+def valid_ends(ratios: torch.Tensor, valid: torch.Tensor):
+    """(min, max) over valid ratios as host floats, each zero end signed
+    as XLA's min and max sign it; (inf, -inf) when none are valid.  One
+    device-to-host copy (two when an end is zero)."""
     lo = torch.where(valid, ratios, float("inf")).amin()
     hi = torch.where(valid, ratios, float("-inf")).amax()
-    lo, hi, any_valid = torch.stack([lo, hi, valid.any().float()]).tolist()
-    if not any_valid:
-        return np.float32(0.0), np.float32(0.0)
+    lo, hi = torch.stack([lo, hi]).tolist()
     if lo == 0 or hi == 0:
         lo, hi = _signed_zero_ends(ratios, valid, lo, hi)
+    return lo, hi
+
+
+def ratio_range(ratios: torch.Tensor, valid: torch.Tensor):
+    """(min, max) over valid ratios as host float32; (0, 0) when none are
+    valid."""
+    lo, hi = valid_ends(ratios, valid)
+    if lo > hi:
+        return np.float32(0.0), np.float32(0.0)
     return np.float32(lo), np.float32(hi)
 
 
@@ -97,5 +105,5 @@ def candidate_bin_ids(ratios: torch.Tensor, valid: torch.Tensor, domain_lo,
     return ids.to(torch.int32), ok
 
 
-__all__ = ["change_ratios", "ratio_range", "histogram_domain",
+__all__ = ["change_ratios", "valid_ends", "ratio_range", "histogram_domain",
            "candidate_bin_ids"]

@@ -69,14 +69,24 @@ def axis_size(group: ShardGroup) -> int:
 
 
 def allreduce_minmax(los: Sequence, his: Sequence, group: ShardGroup):
-    """(min of ``los``, max of ``his``) over every shard, as float32."""
-    lo = np.float32(min(float(v) for v in los))
-    hi = np.float32(max(float(v) for v in his))
+    """(min of ``los``, max of ``his``) over every shard, as float32.
+
+    Ties go to the first shard in global order, as the reference's
+    ``lax.pmin``/``pmax`` resolve them on XLA's host backend: of a -0 and
+    a +0 end, the lower shard's zero is the result.  Python's ``min`` and
+    ``max`` keep the first of equal values, so each process folds its
+    shards in order; across processes every rank's two ends are gathered
+    and folded in rank order (a ``ReduceOp.MIN`` would keep either
+    zero)."""
+    lo = min(float(v) for v in los)
+    hi = max(float(v) for v in his)
     if group.distributed:
-        t = torch.tensor([lo, -hi], dtype=torch.float32)
-        dist.all_reduce(t, op=dist.ReduceOp.MIN)
-        lo, hi = np.float32(t[0].item()), np.float32(-t[1].item())
-    return lo, hi
+        every = [torch.empty(2, dtype=torch.float32)
+                 for _ in range(group.num_ranks)]
+        dist.all_gather(every, torch.tensor([lo, hi], dtype=torch.float32))
+        lo = min(float(e[0]) for e in every)
+        hi = max(float(e[1]) for e in every)
+    return np.float32(lo), np.float32(hi)
 
 
 def allreduce_sum(xs: Sequence[torch.Tensor], group: ShardGroup

@@ -187,19 +187,16 @@ class ShardedCompressor:
                 * np.float32(p.max_bins)
             bound = p.max_bins
         else:
-            los, his, nvalid = [], [], []
-            for prev_l, curr_l in zip(prev_sh, curr_sh):
-                r, valid = ratios.change_ratios(prev_l, curr_l)
-                inf = torch.tensor(float("inf"), device=r.device)
-                los.append(torch.where(valid, r, inf).amin())
-                his.append(torch.where(valid, r, -inf).amax())
-                nvalid.append(valid.sum())
-            lo, hi = coll.allreduce_minmax([float(x) for x in los],
-                                           [float(x) for x in his],
-                                           self.group)
-            any_valid = int(coll.allreduce_sum(nvalid, self.group)) > 0
-            lo = lo if any_valid and np.isfinite(lo) else np.float32(0.0)
-            hi = hi if any_valid and np.isfinite(hi) else np.float32(0.0)
+            # Each shard's ends carry XLA's signed zeros, and the
+            # reduction keeps the first shard's zero, as the reference's
+            # pmin/pmax do.  A valid ratio is finite, so an infinite end
+            # means that no shard has one.
+            ends = [ratios.valid_ends(*ratios.change_ratios(prev_l, curr_l))
+                    for prev_l, curr_l in zip(prev_sh, curr_sh)]
+            lo, hi = coll.allreduce_minmax([e[0] for e in ends],
+                                           [e[1] for e in ends], self.group)
+            lo = lo if np.isfinite(lo) else np.float32(0.0)
+            hi = hi if np.isfinite(hi) else np.float32(0.0)
             domain_lo, width, bound = ratios.histogram_domain(
                 lo, hi, p.error_bound, p.max_bins)
         bin_ids, hists = [], []

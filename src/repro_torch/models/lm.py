@@ -1,5 +1,5 @@
-"""Decoder-only LM assembly, dense GQA subset (the port of the reference's
-``models/lm.py``).
+"""Decoder-only LM assembly, dense and MoE families with GQA or MLA
+attention (the port of the reference's ``models/lm.py``).
 
 The parameters are one ``LM`` module: ``embed`` (V, d), ``ln_f``, one
 ``Layer`` per decoder layer (``ln_attn``, ``attn``, ``ln_mlp``, ``mlp``)
@@ -10,20 +10,22 @@ leading L axis and scans them; here a Python loop runs them in turn
 The decode cache keeps the reference's stacked layout, so a session file
 carries its keys, shapes and dtypes: ``{"attn": {"k": (L,B,S,K,hd), "v":
 ..., "pos_map": (L,S) int32}}`` (a per-layer list for mixed-window
-stacks).  Each layer's decode writes its slice of the cache in place.
+stacks), or for MLA the latent ``{"attn": {"ckv": (L,B,S,kv_lora),
+"krope": (L,B,S,qk_rope), "pos_map": (L,S)}}``.  Each layer's decode
+writes its slice of the cache in place.
 
 Training keeps the parameters in the reference's layout (``param_tree``:
 nested dicts by the reference's keys, the layers stacked on a leading L
 axis), the layout its optimizer, gradient compression and checkpoints
 work on; ``bind_params`` gives the forward an ``LM`` whose parameters
 are views of those stacked tensors, and ``stack_layers`` stacks the
-per-layer gradients back.  ``lm_loss`` is the reference's cross-entropy;
-``remat="block"`` recomputes each layer in the backward
-(``torch.utils.checkpoint``).
+per-layer gradients back.  ``lm_loss`` is the reference's cross-entropy
+plus the MoE layers' load-balance loss; ``remat="block"`` recomputes
+each layer in the backward (``torch.utils.checkpoint``).
 
-MLA, MoE, SSM, the hybrid layer loop and the frontends wait for later
-slices (ROADMAP Queue 1, item 7); ``shd.constrain`` is dropped (a no-op
-on one device).
+SSM, the hybrid layer loop and the frontends wait for later slices
+(ROADMAP Queue 1, items 7c-7e); ``shd.constrain`` is dropped (a no-op on
+one device).
 """
 from __future__ import annotations
 
@@ -45,10 +47,12 @@ class Layer(nn.Module):
         d = cfg.d_model
         if cfg.n_heads:
             self.ln_attn = L.RMSNorm(d, device)
-            self.attn = L.GQA(cfg, device)
+            self.attn = (L.MLA(cfg, device) if cfg.attn_kind == "mla"
+                         else L.GQA(cfg, device))
         if cfg.d_ff:
             self.ln_mlp = L.RMSNorm(d, device)
-            self.mlp = L.FFN(cfg, device)
+            self.mlp = (L.MoE(cfg, device) if cfg.n_experts
+                        else L.FFN(cfg, device))
 
 
 class LM(nn.Module):
@@ -79,16 +83,18 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> LM:
     """Random weights at the reference's scales, drawn from `gen` (a
     generator on `device`): embed N(0, 0.02), dense weights fan-in^-1/2,
     ``wo`` (H*hd)^-1/2, untied unembed d^-1/2, biases 0, norm scales 1.
-    Drawn in float32 and stored in ``cfg.dtype``; norm scales stay
-    float32.  The draws are torch's, not jax's: only the scales match."""
+    Drawn in float32 one layer's weight at a time and stored in
+    ``cfg.dtype``; norm scales stay float32.  The draws are torch's, not
+    jax's: only the scales match."""
     p = LM(cfg, device)
     p.embed.copy_(torch.randn(p.embed.shape, generator=gen,
                               dtype=torch.float32, device=device) * 0.02)
     for layer in p.layers:
         if cfg.n_heads:
-            L.gqa_init(layer.attn, gen)
+            (L.mla_init if cfg.attn_kind == "mla" else L.gqa_init)(
+                layer.attn, gen)
         if cfg.d_ff:
-            L.ffn_init(layer.mlp, gen)
+            (L.moe_init if cfg.n_experts else L.ffn_init)(layer.mlp, gen)
     if not cfg.tie_embeddings:
         p.unembed.copy_(torch.randn(p.unembed.shape, generator=gen,
                                     dtype=torch.float32, device=device)
@@ -111,24 +117,39 @@ def layer_flags(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def _attn_block(p, x, cfg: ModelConfig, positions, window: int):
+    """-> (out, (k, v)) for GQA, (out, (c_kv, k_rope)) for MLA."""
     h = L.rms_norm(p.ln_attn, x, cfg.norm_eps)
+    if cfg.attn_kind == "mla":
+        return L.mla_apply(p.attn, h, cfg=cfg, positions=positions,
+                           prefix=cfg.n_prefix)
     return L.gqa_apply(p.attn, h, cfg=cfg, positions=positions,
                        window=window, prefix=cfg.n_prefix,
                        has_window=bool(cfg.sliding_window))
 
 
-def _mlp_block(p, x, cfg: ModelConfig):
-    return x + L.ffn_apply(p.mlp, L.rms_norm(p.ln_mlp, x, cfg.norm_eps))
+def _mlp_block(p, x, cfg: ModelConfig, a_out=None):
+    """The residual add of the attention's output `a_out` (if any) and the
+    FFN or MoE block after it -> (x', the MoE's aux loss or None)."""
+    if a_out is not None:
+        x = x + a_out
+    if not cfg.d_ff:
+        return x, None
+    h = L.rms_norm(p.ln_mlp, x, cfg.norm_eps)
+    if cfg.n_experts:
+        m_out, aux = L.moe_apply(p.mlp, h, cfg=cfg)
+        return x + m_out, aux
+    return x + L.ffn_apply(p.mlp, h), None
 
 
 def layer_apply(p, x, *, cfg: ModelConfig, positions, window: int):
     """x (B,T,d) -> (x', aux_loss); the attention and FFN branches."""
+    a_out = None
     if cfg.n_heads:
         a_out, _ = _attn_block(p, x, cfg, positions, window)
-        x = x + a_out
-    if cfg.d_ff:
-        x = _mlp_block(p, x, cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = _mlp_block(p, x, cfg, a_out)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -243,16 +264,23 @@ def bind_params(tree, cfg: ModelConfig) -> LM:
 # serving: prefill + decode
 # ---------------------------------------------------------------------------
 
+def _attn_cache_spec(cfg: ModelConfig, window: int, batch, s_max, dtype,
+                     device):
+    if cfg.attn_kind == "mla":
+        return L.mla_empty_cache(cfg, batch, s_max, dtype, device)
+    return L.gqa_empty_cache(cfg, batch, s_max, window, dtype, device)
+
+
 def empty_cache(cfg: ModelConfig, batch, s_max, stacked: bool = True,
                 device=None):
     """Decode cache.  stacked=True -> leading L axis (uniform windows)."""
     dt = L.cdtype(cfg)
     windows = [int(w) for w in layer_flags(cfg)]
     if stacked:
-        one = L.gqa_empty_cache(cfg, batch, s_max, windows[0], dt, device)
+        one = _attn_cache_spec(cfg, windows[0], batch, s_max, dt, device)
         return {"attn": {k: torch.stack([v] * cfg.n_layers)
                          for k, v in one.items()}}
-    return [{"attn": L.gqa_empty_cache(cfg, batch, s_max, w, dt, device)}
+    return [{"attn": _attn_cache_spec(cfg, w, batch, s_max, dt, device)}
             for w in windows]
 
 
@@ -272,13 +300,16 @@ def layer_decode(p, x, cache, *, cfg: ModelConfig, pos, window: int,
                  prefix: int = 0):
     """One layer, one token.  cache: {"attn": ...} for this layer,
     updated in place."""
+    a_out = None
     if cfg.n_heads:
         h = L.rms_norm(p.ln_attn, x, cfg.norm_eps)
-        a_out, _ = L.gqa_decode(p.attn, h, cache["attn"], cfg=cfg, pos=pos,
-                                window=window, prefix=prefix)
-        x = x + a_out
-    if cfg.d_ff:
-        x = _mlp_block(p, x, cfg)
+        if cfg.attn_kind == "mla":
+            a_out, _ = L.mla_decode(p.attn, h, cache["attn"], cfg=cfg,
+                                    pos=pos)
+        else:
+            a_out, _ = L.gqa_decode(p.attn, h, cache["attn"], cfg=cfg,
+                                    pos=pos, window=window, prefix=prefix)
+    x, _ = _mlp_block(p, x, cfg, a_out)     # MoE at T = 1: capacity 1
     return x, cache
 
 
@@ -319,14 +350,15 @@ def prefill(params: LM, cfg: ModelConfig, tokens,
         cache = empty_cache(cfg, B, s_max, stacked=not uses_layer_loop(cfg),
                             device=dev)
         for i, lp in enumerate(params.layers):
+            a_out = None
             if cfg.n_heads:
-                a_out, (k, v) = _attn_block(lp, x, cfg, positions,
-                                            windows[i])
-                _kv_to_cache(_layer_cache(cache, i)["attn"], k, v, T,
-                             windows[i], dt)
-                x = x + a_out
-            if cfg.d_ff:
-                x = _mlp_block(lp, x, cfg)
+                a_out, kv = _attn_block(lp, x, cfg, positions, windows[i])
+                c = _layer_cache(cache, i)["attn"]
+                if cfg.attn_kind == "mla":
+                    _mla_to_cache(c, *kv, T, dt)
+                else:
+                    _kv_to_cache(c, *kv, T, windows[i], dt)
+            x, _ = _mlp_block(lp, x, cfg, a_out)
         x = L.rms_norm(params.ln_f, x[:, -1:, :], cfg.norm_eps)
         logits = unembed(params, cfg, x)
         return logits, cache, torch.tensor(T, dtype=torch.int32, device=dev)
@@ -348,6 +380,14 @@ def _kv_to_cache(c, k, v, T: int, window: int, dt) -> None:
         c["k"][:, :T] = k.to(dt)
         c["v"][:, :T] = v.to(dt)
         c["pos_map"][:T] = torch.arange(T, dtype=torch.int32, device=dev)
+
+
+def _mla_to_cache(c, ckv, krope, T: int, dt) -> None:
+    """Prefill latents (B,T,kv_lora) and roped keys (B,T,qk_rope) -> the
+    layer's MLA cache `c` (its zeroed tensors, written in place)."""
+    c["ckv"][:, :T] = ckv.to(dt)
+    c["krope"][:, :T] = krope.to(dt)
+    c["pos_map"][:T] = torch.arange(T, dtype=torch.int32, device=ckv.device)
 
 
 __all__ = ["LM", "Layer", "init_params", "layer_flags", "layer_apply",

@@ -1,5 +1,6 @@
 """Public model API: --arch <id> -> Model(init/loss/forward/prefill/decode)
-(the port of the reference's ``models/model.py``, dense GQA subset).
+(the port of the reference's ``models/model.py``: the dense and MoE
+families, with GQA or MLA attention).
 
 The model runs on the CUDA device unless the caller passes
 ``device="cpu"``; without a GPU a CUDA device raises.  Its parameters
@@ -21,9 +22,6 @@ from repro_torch.models.config import ModelConfig
 
 # What this slice does not port, and where the ROADMAP queues it.
 _UNPORTED = (
-    (lambda c: c.attn_kind == "mla", "MLA attention",
-     "ROADMAP Queue 1, item 7a (MLA)"),
-    (lambda c: bool(c.n_experts), "MoE FFN", "ROADMAP Queue 1, item 7b (MoE)"),
     (lambda c: c.family == "ssm", "the SSM (SSD) stack",
      "ROADMAP Queue 1, item 7c (SSM)"),
     (lambda c: c.family == "hybrid", "the hybrid layer loop",
@@ -38,7 +36,7 @@ def check_supported(cfg: ModelConfig) -> None:
         if test(cfg):
             raise NotImplementedError(
                 f"{cfg.name} needs {what}, not yet ported to PyTorch "
-                f"({item}); the port serves dense GQA models")
+                f"({item}); the port serves the dense and MoE families")
 
 
 class Model:

@@ -806,3 +806,147 @@ def test_cuda_train_step_matches_cpu(cuda, bits):
     _, _, got = card_tr.fit(card, iter(batches[1:]), start_step=1,
                             log=lambda *_: None)
     np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+# -- the MLA and MoE families -------------------------------------------
+
+def _family_models(cuda, arch):
+    """A reduced arch (float32) on the CPU and the same weights on the
+    card."""
+    import copy
+
+    from repro_torch.models.model import build
+
+    model = build(arch, smoke=True)
+    cpu = model.init(0, device="cpu")
+    return model, cpu, copy.deepcopy(cpu).to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "mixtral-8x7b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_cuda_mla_moe_models_match_cpu(cuda, arch):
+    """Prefill (logits and the cache: MLA's ckv and krope) and eight
+    decode steps on the card against the CPU, logits within 1e-3; for
+    MLA also the card's absorbed decode against its expanded
+    mla_decode_naive from the same cache."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    model, cpu, card = _family_models(cuda, arch)
+    cfg = model.cfg
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 18)))
+    got = lm.prefill(card, cfg, toks[:, :10].to(cuda), s_max=18)
+    want = lm.prefill(cpu, cfg, toks[:, :10], s_max=18)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(),
+                               rtol=1e-3, atol=1e-3)
+    for k, w in want[1]["attn"].items():
+        g = got[1]["attn"][k]
+        assert g.is_cuda and g.dtype == w.dtype and g.shape == w.shape, k
+        np.testing.assert_allclose(g.cpu().float().numpy(),
+                                   w.float().numpy(), rtol=1e-3, atol=1e-3)
+    gc, wc, pos = got[1], want[1], want[2]
+    for i in range(10, 18):
+        tok = toks[:, i:i + 1]
+        if cfg.attn_kind == "mla" and i == 10:
+            naive = {"attn": {k: v.clone() for k, v in gc["attn"].items()}}
+            absorbed = L.mla_decode
+            L.mla_decode = L.mla_decode_naive
+            try:
+                nl, _ = lm.decode_step(card, cfg, naive, tok.to(cuda),
+                                       pos.to(cuda))
+            finally:
+                L.mla_decode = absorbed
+        gl, gc = lm.decode_step(card, cfg, gc, tok.to(cuda), pos.to(cuda))
+        wl, wc = lm.decode_step(cpu, cfg, wc, tok, pos)
+        np.testing.assert_allclose(gl.cpu().numpy(), wl.numpy(),
+                                   rtol=1e-3, atol=1e-3)
+        if cfg.attn_kind == "mla" and i == 10:
+            np.testing.assert_allclose(nl.cpu().numpy(), gl.cpu().numpy(),
+                                       rtol=1e-3, atol=1e-3)
+        pos = pos + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split,cf", [(1, 2.0), (2, 2.0), (2, 0.5)])
+def test_cuda_moe_routing_matches_cpu(cuda, split, cf):
+    """moe_apply on the card: the routing (slot_e, pos, keep) equal to the
+    CPU's, with drops at cf 0.5, and the output and aux within 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import layers as L
+
+    cfg = dataclasses.replace(get_smoke_config("mixtral-8x7b"),
+                              moe_ep_split=split, capacity_factor=cf)
+    gen = torch.Generator().manual_seed(split)
+    moe = L.MoE(cfg)
+    L.moe_init(moe, gen)
+    card = L.MoE(cfg, cuda)
+    card.load_state_dict(moe.state_dict())
+    x = torch.randn((2, 16, cfg.d_model), generator=gen) * 0.5
+    want = L.moe_route(moe, x, cfg)
+    got = L.moe_route(card, x.to(cuda), cfg)
+    for i in (2, 4, 5):
+        assert torch.equal(got[i].cpu(), want[i]), i
+    assert bool(want[5].all()) == (cf == 2.0)
+    (y, aux), (wy, waux) = L.moe_apply(card, x.to(cuda), cfg=cfg), \
+        L.moe_apply(moe, x, cfg=cfg)
+    np.testing.assert_allclose(y.cpu().numpy(), wy.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(float(aux), float(waux), rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 32, 4, 24), (1, 8, 64, 64),
+                                   (2, 64, 40)],
+                         ids=["wq_b", "we_down", "wkv_a"])
+def test_cuda_quantize_dequantize_stacked_leaves(cuda, shape):
+    """3-D and 4-D stacked leaves (MLA projections, slot-wise expert
+    stacks) through quantize_dequantize on the card: the CPU path's
+    g_hat bit for bit, one histogram launch."""
+    from repro_torch.train import gradcomp
+
+    g = torch.from_numpy(np.random.default_rng(len(shape)).normal(
+        0, 1e-3, shape).astype(np.float32))
+    want, _ = gradcomp.quantize_dequantize(g, b_bits=6)
+    hist.KERNEL.launches = 0
+    got, _ = gradcomp.quantize_dequantize(g.to(cuda), b_bits=6)
+    torch.cuda.synchronize()
+    assert hist.KERNEL.launches == 1 and got.shape == g.shape
+    assert torch.equal(int_bits(got.cpu()), int_bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "mixtral-8x7b"])
+def test_cuda_family_engine_sessions_match_cpu(cuda, tmp_path, monkeypatch,
+                                               arch):
+    """The engine on the card gives the CPU engine's greedy tokens for
+    MLA and MoE; a rans session saved on the card resumes on the CPU,
+    and its load on the card inflates every leaf through the decode
+    kernel (DEVICE_MIN_BYTES = 0), MLA's ckv and krope among them."""
+    from repro_torch.serve.engine import Engine
+
+    monkeypatch.setattr(rans, "DEVICE_MIN_BYTES", 0)
+    model, cpu, card = _family_models(cuda, arch)
+    p = np.random.default_rng(1).integers(0, model.cfg.vocab_size,
+                                          (2, 10)).astype(np.int32)
+    e_card = Engine(model, card, 2, 32, keep_session=True, device=cuda)
+    e_cpu = Engine(model, cpu, 2, 32, keep_session=True, device="cpu")
+    np.testing.assert_array_equal(e_card.generate(p, max_new=6),
+                                  e_cpu.generate(p, max_new=6))
+    path = str(tmp_path / "card.nck")
+    e_card.save_session(path, codec="rans")
+    rest = e_card.resume(max_new=6)
+    e_cpu.load_session(path)
+    np.testing.assert_array_equal(e_cpu.resume(max_new=6), rest)
+    r = repro_torch.NCKReader(path)
+    steps = [r.read_step(v) for v in r.step_names()]
+    want = sum(len({tuple(rans._parse_v1(b)[:2]) for b in st.index_blocks
+                    if rans.blob_version(b) == 1}) for st in steps)
+    rans.DECODE.launches = 0
+    e_card.load_session(path)
+    assert rans.DECODE.launches == want > 0
+    keys = ("ckv", "krope") if model.cfg.attn_kind == "mla" else ("k", "v")
+    assert all(e_card.last_cache["attn"][k].is_cuda for k in keys)

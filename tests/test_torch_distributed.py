@@ -491,3 +491,128 @@ def test_two_rank_save_series_and_crashed_rank(tmp_path):
     after = NCKReader(path)
     for n, s in zip(names, read):
         assert after.read_step(n).index_blocks == s.index_blocks
+
+
+# ------------------------------------------- signed zeros of the range pass
+
+# (shards, shard holding a -0 ratio, shard holding a +0 ratio or None):
+# a shard's own minimum is -0 when it holds both (XLA's min), and the
+# reference's pmin keeps the zero of the first shard that holds one.
+ZERO_CASES = [(1, 0, 0), (2, 1, 0), (2, 0, 1), (2, 1, 1), (4, 2, None),
+              (4, 3, 1), (4, 1, 3), (4, 2, 2)]
+N_ZERO = 8_192
+
+_ZERO_JAX = textwrap.dedent("""
+    import os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import numpy as np, jax
+    from jax.sharding import Mesh
+    from repro.core.container import NCKWriter
+    from repro.core.types import NumarckParams
+    from repro.distributed.pipeline import ShardedCompressor
+    out, cases, n = sys.argv[1], eval(sys.argv[2]), int(sys.argv[3])
+    for shards, neg, pos in cases:
+        rng = np.random.default_rng(11)
+        base = rng.uniform(1.0, 2.0, n).astype(np.float32)
+        # every other ratio > 0; a -0 where x == prev < 0, a +0 where
+        # x == prev > 0
+        nxt = (base * (1 + 1e-3 * (0.5 + rng.random(n)))).astype(np.float32)
+        ln = -(-n // shards)
+        base[neg * ln + 5] = nxt[neg * ln + 5] = -1.5
+        if pos is not None:
+            nxt[pos * ln + 9] = base[pos * ln + 9]
+        tag = f"{shards}_{neg}_{pos}"
+        np.save(f"{out}/series_{tag}.npy", np.stack([base, nxt]))
+        js = ShardedCompressor(Mesh(np.array(jax.devices()[:shards]),
+                                    ("data",)), "data",
+                               NumarckParams(block_bytes=4096),
+                               use_pallas=False)
+        w = NCKWriter()
+        for i, s in enumerate(js.compress_series([base, nxt])):
+            w.add_step(f"step{i:04d}", s)
+        js.close()
+        w.write(f"{out}/jax_{tag}.nck")
+    print("ZERO_OK")
+""")
+
+
+@pytest.fixture(scope="module")
+def zero_files(tmp_path_factory):
+    """The JAX sharded driver's NCK files for ZERO_CASES, written over
+    four host devices in one subprocess, beside each case's series."""
+    out = tmp_path_factory.mktemp("zeros")
+    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
+    res = subprocess.run([sys.executable, "-c", _ZERO_JAX, str(out),
+                          repr(ZERO_CASES), str(N_ZERO)], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and "ZERO_OK" in res.stdout, res.stderr
+    return out
+
+
+def _zero_case(out, case):
+    tag = "_".join(map(str, case))
+    return (list(np.load(out / f"series_{tag}.npy")),
+            (out / f"jax_{tag}.nck").read_bytes())
+
+
+def _nck_bytes(steps, path):
+    w = NCKWriter()
+    for i, s in enumerate(steps):
+        w.add_step(f"step{i:04d}", s)
+    w.write(str(path))
+    return path.read_bytes()
+
+
+@pytest.mark.parametrize("case", ZERO_CASES,
+                         ids=["_".join(map(str, c)) for c in ZERO_CASES])
+def test_sharded_zero_minimum_keeps_the_reference_sign(case, zero_files,
+                                                       tmp_path):
+    """A step whose smallest ratio is zero, a -0 on one shard: the
+    sharded NCK bytes (domain_lo's sign among them) equal the JAX
+    sharded driver's over 1, 2 and 4 shards."""
+    shards, neg, pos = case
+    arrays, want = _zero_case(zero_files, case)
+    sc = ShardedCompressor(_cpu(shards), repro_torch.NumarckParams(
+        block_bytes=4096))
+    steps = sc.compress_series(arrays)
+    sc.close()
+    first_zero = neg if pos is None else min(neg, pos)
+    assert np.signbit(steps[1].domain_lo) == (first_zero == neg)
+    assert steps[1].domain_lo == 0
+    assert _nck_bytes(steps, tmp_path / "port.nck") == want
+
+
+_ZERO_WORKER = textwrap.dedent("""
+    import os
+    import numpy as np
+    from repro_torch.launch import distributed as ld
+    ld.initialize()
+    from repro_torch.core.types import NumarckParams
+    from repro_torch.distributed.pipeline import MultiProcessCompressor
+    mp = MultiProcessCompressor(["cpu"], NumarckParams(block_bytes=4096))
+    mp.save_series(os.environ["OUT_PATH"],
+                   list(np.load(os.environ["SERIES"])),
+                   manifest_timeout=10.0)
+    mp.close()
+    ld.shutdown()
+""")
+
+
+@pytest.mark.parametrize("case", [(2, 1, 0), (2, 0, 1), (2, 1, 1)],
+                         ids=["neg_on_rank1", "neg_on_rank0", "both_on_rank1"])
+def test_two_ranks_zero_minimum_keeps_the_reference_sign(case, zero_files,
+                                                         tmp_path):
+    """The same through two gloo ranks: the ends cross processes with
+    their signs, and the steps read back through the manifest write the
+    JAX sharded driver's NCK bytes."""
+    _, want = _zero_case(zero_files, case)
+    path = str(tmp_path / "series.nck")
+    tag = "_".join(map(str, case))
+    env = dict(os.environ, OUT_PATH=path, PYTHONPATH=SRC,
+               SERIES=str(zero_files / f"series_{tag}.npy"))
+    env.pop("REPRO_FAULTS", None)
+    ld.check_spawned(ld.spawn_emulated(2, ["-c", _ZERO_WORKER],
+                                       base_env=env, timeout=240))
+    r = NCKReader(path)
+    steps = [r.read_step(n) for n in r.step_names()]
+    assert _nck_bytes(steps, tmp_path / "port.nck") == want
