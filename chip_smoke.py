@@ -58,12 +58,19 @@ Phases, each fatal on failure (exit code 1, no result line):
               rANS decode kernel once per v1 group of each leaf on the
               device route (rans) and no kernel with zlib; bf16 logits
               against f32 and decode_step against prefill at cosine >= 0.99.
-              The same for serve_mla (minicpm3-4b, uncut: 62 layers, MLA,
+              The same for serve_mla (minicpm3-4b at full width, 31 of 62
+              layers for the run's time limit, MLA,
               the latent ckv/krope cache through the decode kernel; the
               absorbed decode against mla_decode_naive at cosine >= 0.99)
               and serve_moe (mixtral-8x7b at full width, depth cut to 16
               of 32 layers to fit the card; the prefill's share of
-              dropped routed choices at capacity factor 1.25).
+              dropped routed choices at capacity factor 1.25), serve_ssm
+              (mamba2-780m uncut, 1,000 prompt tokens: the SSD's chunked
+              dual form over four chunks of 256, the float32 state h and
+              conv tail through the decode kernel) and serve_hybrid
+              (hymba-1.5b uncut, 1,300 prompt tokens past its 1,024-token
+              window: attention and SSD side by side, per-layer caches);
+              their rANS session round trip runs on one request.
   11. train   Trainer.fit on the card: Llama-3.2-1B at full width and depth
               (bf16, seeded on the card), 4 x 256 TokenPipeline tokens a
               step, 8 steps with gradient compression off and 8 at B = 6
@@ -73,14 +80,15 @@ Phases, each fatal on failure (exit code 1, no result line):
               steps under torch.profiler.  quantize_dequantize on real
               gradients, card against CPU, bit for bit; one step of the
               reduced f32 config, card against CPU.  A restart at full
-              width cut to 2 layers: an anchor at step 2, a delta at 4
+              width cut to 1 layer: an anchor at step 2, a delta at 4
               (kernels 1-4 once per lossy leaf), a new Trainer restores
               step 4 and trains to 6, matching the uninterrupted run.
-              Then minicpm3-4b (16 of 62 layers) and mixtral-8x7b (1 of
-              32) at full width: 4 steps at B = 6 (the histogram kernel
-              once per leaf per step), finite losses, the MoE aux > 0,
-              and quantize_dequantize of a real wkv_a / we_down gradient
-              card against CPU, bit for bit.
+              Then minicpm3-4b (16 of 62 layers), mixtral-8x7b (1 of
+              32), mamba2-780m and hymba-1.5b (uncut) at full width: 4
+              steps at B = 6 (the histogram kernel once per leaf per
+              step), finite losses and gradients, the MoE aux > 0, and
+              quantize_dequantize of a real wkv_a / we_down / in_proj /
+              A_log gradient card against CPU, bit for bit.
   12. kernels each kernel against its plain version on the card, exactly,
               at n = 42*360*240 (the CMIP step) and n = 2^26, with timings
               (median of 20 launches, CUDA events, after warm-up) beside
@@ -1021,7 +1029,8 @@ LLAMA_LAYER = {"attn": {"q": (2048, 2048), "k": (2048, 512),
                        "down": (8192, 2048)},
                "attn_norm": {"scale": (2048,)},
                "mlp_norm": {"scale": (2048,)}}
-CKPT_LAYERS = 2                    # of the model's 16 decoder layers
+CKPT_LAYERS = 1                    # of the model's 16 decoder layers (the
+                                   # run's 1,200 s: PERF.md section 4)
 CKPT_SAVES = 5
 OUT = ROOT / "chiprun_out"
 
@@ -1472,13 +1481,28 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 256, 32
 COS_MIN = 0.99                     # logits' cosine similarity, every position
 F32_LAYERS = 2                     # layers in the bf16-vs-f32 check where the
                                    # whole model's f32 copy does not fit
-# The MLA and MoE families served the same way (label, arch, decoder layers
-# kept, why the depth is cut).  Mixtral's 32 layers are 93.4 GB of bf16
+# The MLA, MoE, SSM and hybrid families served the same way (label, arch,
+# decoder layers kept, why the depth is cut, prompt tokens, requests in the
+# rANS session round trip).  Mixtral's 32 layers are 93.4 GB of bf16
 # weights: 16 of them (47.0 GB) fit one 80 GB card beside the caches.
-FAMILIES = (("serve_mla", "minicpm3-4b", None, None),
+# minicpm3-4b runs 31 of its 62 layers so that the whole run stays well
+# inside its 1,200 s (a host-bound 1,029 s with all 62, PERF.md section 4).
+# mamba2's 1,000 prompt tokens make three full SSD chunks of 256 and a
+# padded fourth; hymba's 1,300 run past its 1,024-token window (the ring
+# wraps on its 29 SWA layers) and pad its sixth chunk.  Their rANS session
+# round trip runs on one request (zlib on all four): the host rANS coder
+# saves at ~4 MB/s, and four requests' state is 310 MB (mamba2) and ~188
+# MB (hymba).
+RANS_CUT = ("rANS session round trip on 1 of 4 requests: the host rANS "
+            "coder saves at ~4 MB/s (PERF.md)")
+FAMILIES = (("serve_mla", "minicpm3-4b", 31,
+             "31 of 62 layers: chip_smoke's time limit (PERF.md section 4)",
+             SERVE_PROMPT, SERVE_BATCH),
             ("serve_moe", "mixtral-8x7b", 16,
              "16 of 32 layers: 93.4 GB of bf16 weights do not fit one 80 GB "
-             "card"))
+             "card", SERVE_PROMPT, SERVE_BATCH),
+            ("serve_ssm", "mamba2-780m", None, None, 1000, 1),
+            ("serve_hybrid", "hymba-1.5b", None, None, 1300, 1))
 
 
 def serve_config(arch: str = SERVE_ARCH, n_layers=None):
@@ -1636,18 +1660,24 @@ def bf16_vs_f32(torch, lm, L, params, cfg, tokens, n_layers: int) -> dict:
 
 
 def serve_phase(torch, np, dev, launches: dict, label: str = "serve",
-                arch: str = SERVE_ARCH, n_layers=None, cut=None) -> dict:
+                arch: str = SERVE_ARCH, n_layers=None, cut=None,
+                prompt: int = SERVE_PROMPT,
+                rans_batch: int = SERVE_BATCH) -> dict:
     """A model and the serving engine at the arch's full width (bf16,
     seeded random weights made on the card; the depth cut to `n_layers`
     where `cut` says why): Llama-3.2-1B (dense GQA, 16 layers, the
-    128,256 x 2048 tied embedding), and the FAMILIES.  Greedy tokens of
-    an uninterrupted generate equal generate + save_session +
-    load_session (a new engine) + resume, with zlib and with rANS; every
-    restored leaf equals the saved one bit for bit; load_session
-    launches rans_decode once per (length, lanes) group of v1 blobs of
-    each leaf on the device route (the attention cache's k and v, or
-    MLA's latent ckv and krope, among them) and no other kernel (none
-    with zlib); the card's file loads on the CPU to the same bytes;
+    128,256 x 2048 tied embedding), and the FAMILIES, SERVE_BATCH
+    requests of `prompt` tokens.  Greedy tokens of an uninterrupted
+    generate equal generate + save_session + load_session (a new engine)
+    + resume, with zlib and with rANS (rANS on the first `rans_batch`
+    requests, against their own uninterrupted stream); every restored
+    leaf equals the saved one bit for bit; the leaves on the rANS
+    decode kernel's route are exactly those of at least
+    rans.DEVICE_MIN_BYTES (the attention cache's k and v, MLA's latent
+    ckv and krope, the SSD's state h and conv tail where they are that
+    large), and load_session launches rans_decode once per (length,
+    lanes) group of v1 blobs of each and no other kernel (none with
+    zlib); the card's file loads on the CPU to the same bytes;
     decode_step at T against prefill of T + 1 at cosine >= COS_MIN at
     every position (a MoE with a drop-free capacity for this check).
     bf16 forward logits against the same weights in f32 at cosine >=
@@ -1664,7 +1694,7 @@ def serve_phase(torch, np, dev, launches: dict, label: str = "serve",
 
     from repro_torch.core import compress
     from repro_torch.core.container import NCKReader
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, rans
     from repro_torch.models import layers as L
     from repro_torch.models import lm
     from repro_torch.models.model import Model
@@ -1673,7 +1703,7 @@ def serve_phase(torch, np, dev, launches: dict, label: str = "serve",
     card = card_line()
     cfg = serve_config(arch, n_layers)
     model = Model(cfg)
-    B, T, NEW = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    B, T, NEW = SERVE_BATCH, prompt, SERVE_NEW
     s_max = T + 2 * NEW
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1694,6 +1724,13 @@ def serve_phase(torch, np, dev, launches: dict, label: str = "serve",
     moe = (f", {cfg.n_experts} experts top-{cfg.moe_top_k} split "
            f"{cfg.moe_ep_split}, capacity factor {cfg.capacity_factor}"
            if cfg.n_experts else "")
+    if cfg.ssm_state:
+        moe += (f", SSD {cfg.ssm_heads} heads of {cfg.ssm_head_dim}, state "
+                f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, conv "
+                f"{cfg.conv_width}")
+    if cfg.sliding_window:
+        moe += (f", window {cfg.sliding_window} (global layers "
+                f"{list(cfg.global_attn_layers)})")
     log(f"{label}: {cfg.name}, {cfg.n_layers} layers"
         f"{' (' + cut + ')' if cut else ''}, d_model {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {shape}, d_ff {cfg.d_ff}"
@@ -1740,9 +1777,15 @@ def serve_phase(torch, np, dev, launches: dict, label: str = "serve",
 
     tmp = tempfile.mkdtemp()
     for codec in ("zlib", "rans"):
-        saver = Engine(model, params, B, s_max, keep_session=True,
+        nb = rans_batch if codec == "rans" else B
+        reqs, want_full = prompts[:nb], full
+        if nb != B:
+            # the requests' own uninterrupted stream at this batch size
+            want_full = Engine(model, params, nb, s_max, device=dev
+                               ).generate(reqs, max_new=2 * NEW)
+        saver = Engine(model, params, nb, s_max, keep_session=True,
                        device=dev)
-        first = saver.generate(prompts, max_new=NEW)
+        first = saver.generate(reqs, max_new=NEW)
         path = os.path.join(tmp, f"session_{codec}.nck")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1752,8 +1795,8 @@ def serve_phase(torch, np, dev, launches: dict, label: str = "serve",
         check_counts(f"{label} save {codec}", got, {})
         saved = saver._session.to_host()
         del saver
-        eng = Engine(model, params, B, s_max, device=dev)
-        eng.generate(prompts, max_new=1)            # records the template
+        eng = Engine(model, params, nb, s_max, device=dev)
+        eng.generate(reqs, max_new=1)               # records the template
         r = NCKReader(path)
         steps = [r.read_step(v) for v in r.step_names()]
         names = json.loads(bytes(r.read_array("__names__")).decode())
@@ -1764,11 +1807,15 @@ def serve_phase(torch, np, dev, launches: dict, label: str = "serve",
         times["load_ms"][codec] = (time.perf_counter() - t0) * 1e3
         want = read_launches(steps)
         check_counts(f"{label} load {codec}", got, want)
-        cache_keys = {f"cache/attn/{k}" for k in (
-            ("ckv", "krope") if cfg.attn_kind == "mla" else ("k", "v"))}
-        if codec == "rans" and not cache_keys <= set(routed):
+        big = sorted(k for k, leaf in tree_items(saved)
+                     if leaf.numel() * leaf.element_size()
+                     >= rans.DEVICE_MIN_BYTES)
+        if codec == "rans" and (routed != big or not any(
+                k.startswith("cache/") for k in big)):
             raise AssertionError(f"{label} rans: the decode kernel's route "
-                                 f"took {routed}, not {sorted(cache_keys)}")
+                                 f"took {routed}, not the leaves of at "
+                                 f"least {rans.DEVICE_MIN_BYTES} bytes "
+                                 f"{big}")
         launches[f"{label} load {codec}"] = got
         restored = dict(tree_items(eng._session.tree))
         for key, leaf in tree_items(saved):
@@ -1784,13 +1831,15 @@ def serve_phase(torch, np, dev, launches: dict, label: str = "serve",
                 raise AssertionError(f"{label} {codec}: the CPU load of "
                                      f"{key} differs")
         rest = eng.resume(max_new=NEW)
-        if not np.array_equal(np.concatenate([first, rest], axis=1), full):
+        if not np.array_equal(np.concatenate([first, rest], axis=1),
+                              want_full):
             raise AssertionError(f"{label} {codec}: generate + save + load "
                                  "+ resume differs from the uninterrupted "
                                  "stream")
         times.setdefault("session_bytes", {})[codec] = dict(
-            orig=stats["orig_bytes"], comp=stats["comp_bytes"])
-        log(f"{label} {codec}: {stats['orig_bytes']} bytes -> "
+            orig=stats["orig_bytes"], comp=stats["comp_bytes"],
+            requests=nb, device_route=routed)
+        log(f"{label} {codec}, {nb} requests: {stats['orig_bytes']} bytes -> "
             f"{stats['comp_bytes']} ({stats['orig_bytes'] / stats['comp_bytes']:.3f}"
             f"x), save_session {times['save_ms'][codec]:.1f} ms, "
             f"load_session {times['load_ms'][codec]:.1f} ms, launches "
@@ -1857,10 +1906,12 @@ def serve_phase(torch, np, dev, launches: dict, label: str = "serve",
     del cache, step_logits, pre_logits
     if cfg.n_experts:
         num.update(moe_drops(torch, lm, L, params, cfg, tokens, s_max, label))
-    if cfg.attn_kind == "gqa" and not cfg.n_experts:
+    if cfg.attn_kind == "gqa" and not (cfg.n_experts or cfg.ssm_state):
         times.update(sdpa_yardstick(torch, dev, cfg, L, num))
     out = dict(arch=cfg.name, layers=cfg.n_layers,
                layers_full=serve_config(arch).n_layers, depth_cut=cut,
+               rans_requests=rans_batch,
+               rans_cut=RANS_CUT if rans_batch != B else None,
                params=n_params, weight_bytes=w_bytes,
                batch=B, prompt=T, new=NEW, s_max=s_max, kv_bytes=kv_bytes,
                **times, **num,
@@ -1880,20 +1931,26 @@ LOSS_DROP = 1.0                    # nats, step 1 -> step TRAIN_STEPS (PERF.md)
 GRAD_LEAVES = ("layers/attn/wk", "layers/attn/wo", "layers/ln_attn/scale",
                "ln_f/scale")       # real gradients, card against the CPU
 # The restart run: full width, depth cut to RESTART_LAYERS decoder layers
-# (the tied embedding kept); checkpoints every 2 steps, an anchor at 2 and
-# a delta at 4, a crash, a restore and steps 5-6.
-RESTART_LAYERS, RESTART_E = 2, 1e-4
+# (the tied embedding kept; one layer for the run's 1,200 s, PERF.md
+# section 4); checkpoints every 2 steps, an anchor at 2 and a delta at 4,
+# a crash, a restore and steps 5-6.
+RESTART_LAYERS, RESTART_E = 1, 1e-4
 RESTART_LOSS_RTOL = 1e-3           # resumed against uninterrupted (PERF.md)
 STEP_LOSS_RTOL = 1e-5              # one f32 smoke step, card against CPU
-# The MLA and MoE families trained at full width, their depth cut to fit
-# the optimizer state (about 18 bytes a parameter: bf16 weights and grads,
-# the stacked grads, f32 m, v and residual): minicpm3-4b's 16 of 62 layers
-# (1.38 G parameters, ~25 GB), mixtral-8x7b's 1 of 32 (1.71 G, ~31 GB; 2
-# layers would be ~57 GB before activations).  Each runs TRAIN_FAMILY_STEPS
-# steps at B = TRAIN_BITS; `leaf`'s real gradient goes through
-# quantize_dequantize on the card and on the CPU.
+# The MLA, MoE, SSM and hybrid families trained at full width.  The MLA
+# and MoE depths are cut to fit the optimizer state (about 18 bytes a
+# parameter: bf16 weights and grads, the stacked grads, f32 m, v and
+# residual): minicpm3-4b's 16 of 62 layers (1.38 G parameters, ~25 GB),
+# mixtral-8x7b's 1 of 32 (1.71 G, ~31 GB; 2 layers would be ~57 GB before
+# activations).  mamba2-780m (0.78 G, ~14 GB) and hymba-1.5b (1.39 G, ~25
+# GB) run uncut (None: every layer).  Each runs TRAIN_FAMILY_STEPS steps at
+# B = TRAIN_BITS; `leaf`'s real gradient goes through quantize_dequantize
+# on the card and on the CPU (hymba's A_log: the leaf whose gradient the
+# reference's SSD makes NaN at chunk 256).
 TRAIN_FAMILIES = (("minicpm3-4b", 16, "layers/attn/wkv_a"),
-                  ("mixtral-8x7b", 1, "layers/mlp/we_down"))
+                  ("mixtral-8x7b", 1, "layers/mlp/we_down"),
+                  ("mamba2-780m", None, "layers/ssm/in_proj"),
+                  ("hymba-1.5b", None, "layers/ssm/A_log"))
 TRAIN_FAMILY_STEPS = 4
 
 
@@ -2172,7 +2229,7 @@ def train_phase(torch, np, dev, launches: dict) -> dict:
     out["peak_device_bytes"] = max(r["peak_device_bytes"]
                                    for r in out["runs"].values())
 
-    # -- (4) the MLA and MoE families, depth cut -------------------------
+    # -- (4) the MLA, MoE, SSM and hybrid families ------------------------
     out["families"] = {arch: family_train(torch, np, dev, launches, arch,
                                           n_layers, leaf, card)
                        for arch, n_layers, leaf in TRAIN_FAMILIES}
@@ -2182,14 +2239,15 @@ def train_phase(torch, np, dev, launches: dict) -> dict:
     return out
 
 
-def family_train(torch, np, dev, launches: dict, arch: str, n_layers: int,
+def family_train(torch, np, dev, launches: dict, arch: str, n_layers,
                  leaf: str, card: str) -> dict:
-    """`arch` at full width, `n_layers` decoder layers, bf16, seeded on
-    the card: TRAIN_FAMILY_STEPS steps of Trainer.fit with gradient
-    compression at B = TRAIN_BITS (the histogram kernel once per leaf --
-    3-D MLA projections and slot-wise expert stacks among them -- per
-    step, no other kernel), finite losses; the MoE's aux loss finite and
-    > 0 on the next batch; that batch's gradient of `leaf` through
+    """`arch` at full width, `n_layers` decoder layers (None: all), bf16,
+    seeded on the card: TRAIN_FAMILY_STEPS steps of Trainer.fit with
+    gradient compression at B = TRAIN_BITS (the histogram kernel once per
+    leaf -- 3-D MLA projections, slot-wise expert stacks and the SSD's
+    leaves among them -- per step, no other kernel), finite losses; on
+    the next batch every gradient leaf finite and the MoE's aux loss
+    finite and > 0; that batch's gradient of `leaf` through
     quantize_dequantize on the card (one histogram launch) and on the
     CPU, bit for bit.  Step ms, tokens/s, peak memory."""
     from repro_torch.core.tree import leaves_with_keys
@@ -2223,6 +2281,10 @@ def family_train(torch, np, dev, launches: dict, arch: str, n_layers: int,
     aux = float(met["aux"])
     if cfg.n_experts and not (np.isfinite(aux) and aux > 0):
         raise AssertionError(f"{label}: the MoE aux loss is {aux}")
+    bad = [k for k, t in leaves_with_keys(g) if not bool(torch.isfinite(t)
+                                                         .all())]
+    if bad:
+        raise AssertionError(f"{label}: gradients not finite in {bad}")
     grad = dict(leaves_with_keys(g))[leaf].float()
     del g, state, tr
     hist.KERNEL.launches = 0
@@ -2235,7 +2297,7 @@ def family_train(torch, np, dev, launches: dict, arch: str, n_layers: int,
         raise AssertionError(f"{label} gradcomp {leaf}: the card differs "
                              f"from the CPU ({n_launch} launches)")
     peak = torch.cuda.max_memory_allocated()
-    out = dict(arch=arch, layers=n_layers, params=model.param_count(),
+    out = dict(arch=arch, layers=cfg.n_layers, params=model.param_count(),
                leaves=n_leaves, losses=losses, aux=aux, step_ms=step_ms,
                first_step_ms=times[0] * 1e3,
                step_ms_all=[round(t * 1e3, 2) for t in times],
@@ -2246,13 +2308,14 @@ def family_train(torch, np, dev, launches: dict, arch: str, n_layers: int,
                                   alpha_cpu=float(winfo["alpha"])))
     del grad, qd, want
     torch.cuda.empty_cache()
-    log(f"{label}: {cfg.name} full width, {n_layers} of "
+    log(f"{label}: {cfg.name} full width, {cfg.n_layers} of "
         f"{serve_config(arch).n_layers} layers, {out['params']} parameters, "
         f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: losses "
         f"{[round(x, 4) for x in losses]}, aux {aux:.5f}, step "
         f"{step_ms:.1f} ms (median of steps 2-{TRAIN_FAMILY_STEPS}), "
         f"{out['tokens_per_s']:.0f} tokens/s, peak {peak / 1e9:.2f} GB, "
-        f"launches {json.dumps(got)} ({n_leaves} leaves a step); "
+        f"launches {json.dumps(got)} ({n_leaves} leaves a step), every "
+        f"gradient leaf finite; "
         f"quantize_dequantize of {leaf} {tuple(out['gradcomp_leaf']['shape'])}"
         f" card against CPU bit-exact, one histogram launch; {card}")
     return out
@@ -2431,8 +2494,8 @@ def run(torch, np) -> dict:
 
     # -- 10. the models and the serving engine -----------------------------
     serve_phase(torch, np, dev, launches)
-    for label, arch, n_layers, cut in FAMILIES:
-        serve_phase(torch, np, dev, launches, label, arch, n_layers, cut)
+    for family in FAMILIES:
+        serve_phase(torch, np, dev, launches, *family)
         torch.cuda.empty_cache()
 
     # -- 11. training: the trainer, gradient compression, restart ---------

@@ -42,4 +42,10 @@ def inflate_block(blob: bytes, n_elems: int, b_bits: int,
     return packing.unpack_indices_np(packed, n_elems, b_bits)
 
 
-__all__ = ["block_slices", "deflate_blocks", "inflate_block"]
+def zlib_ratio(blocks: List[bytes], raw_sizes: np.ndarray) -> float:
+    """Average entropy compression ratio of the index table (paper
+    Table 9); the name is the reference's, from its zlib-only days."""
+    return pipe.entropy_ratio(blocks, raw_sizes)
+
+
+__all__ = ["block_slices", "deflate_blocks", "inflate_block", "zlib_ratio"]

@@ -19,6 +19,10 @@ GROUP = 32              # indices per word group (32*B bits = B words)
 _WORD_MASK = 0xFFFFFFFF
 
 
+def packed_nbytes(n: int, b_bits: int) -> int:
+    return (n * b_bits + 7) // 8
+
+
 def pack_indices_np(idx: np.ndarray, b_bits: int) -> np.ndarray:
     idx = np.asarray(idx, dtype=np.int64)
     bits = ((idx[:, None] >> np.arange(b_bits)) & 1).astype(np.uint8)
@@ -53,4 +57,5 @@ def pack_indices(idx: torch.Tensor, b_bits: int) -> torch.Tensor:
     return words.reshape(-1).to(torch.uint32)
 
 
-__all__ = ["GROUP", "pack_indices_np", "unpack_indices_np", "pack_indices"]
+__all__ = ["GROUP", "packed_nbytes", "pack_indices_np", "unpack_indices_np",
+           "pack_indices"]

@@ -67,4 +67,12 @@ def choose_b(counts_desc: torch.Tensor, n: int, elem_bytes: int, b_max: int):
     return int(torch.argmin(sizes)) + 1, sizes
 
 
-__all__ = ["cumsum_f32", "estimated_file_sizes", "choose_b"]
+def choose_b_host(counts_desc: np.ndarray, n: int, elem_bytes: int,
+                  b_max: int) -> int:
+    """``choose_b``'s B of a host histogram (sorted descending)."""
+    sizes = estimated_file_sizes(torch.from_numpy(np.asarray(counts_desc)),
+                                 n, elem_bytes, b_max)
+    return int(torch.argmin(sizes)) + 1
+
+
+__all__ = ["cumsum_f32", "estimated_file_sizes", "choose_b", "choose_b_host"]

@@ -190,6 +190,14 @@ def dtype_nbytes(dtype) -> int:
     return step_dtype(dtype).itemsize
 
 
+def required_b_for_k(k: int) -> int:
+    """Smallest B such that 2**B - 1 >= k."""
+    b = 1
+    while (1 << b) - 1 < k:
+        b += 1
+    return b
+
+
 @dataclass(frozen=True)
 class StepDtype:
     """A step's recorded dtype: the name the reference writes
@@ -252,6 +260,7 @@ __all__ = [
     "CompressedStep",
     "mean_error_rate",
     "dtype_nbytes",
+    "required_b_for_k",
     "StepDtype",
     "step_dtype",
     "host_storage",

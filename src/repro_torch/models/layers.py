@@ -153,8 +153,9 @@ def chunked_sdpa(q, k, v, *, q_pos, kv_pos, window: int = 0, prefix=0,
     block_skip: when q/kv positions are the aligned 0..T-1 prefill layout
     each query block visits only the kv blocks inside its causal (and
     SWA) band, as in the reference (blocks outside it are fully masked
-    and would add exactly nothing).  `window` is a Python int here (the
-    reference's traced-window case is hymba's, a later slice).
+    and would add exactly nothing).  `window` is a Python int here, also
+    for hymba's mixed windows, which the reference traces and does not
+    skip.
 
     q (B,T,H,hd), k (B,S,K,hd), v (B,S,K,hdv); H = K * n_rep.
     Returns (B,T,H,hdv).

@@ -1,17 +1,23 @@
-"""Decoder-only LM assembly, dense and MoE families with GQA or MLA
-attention (the port of the reference's ``models/lm.py``).
+"""Decoder-only LM assembly: the dense and MoE families with GQA or MLA
+attention, the SSM (SSD) family and the hybrid family, whose layers run
+attention and SSD side by side (the port of the reference's
+``models/lm.py``).
 
 The parameters are one ``LM`` module: ``embed`` (V, d), ``ln_f``, one
-``Layer`` per decoder layer (``ln_attn``, ``attn``, ``ln_mlp``, ``mlp``)
-and, untied, ``unembed`` (d, V).  The reference stacks the layers on a
-leading L axis and scans them; here a Python loop runs them in turn
+``Layer`` per decoder layer (the reference's keys: ``ln_attn``,
+``attn``, ``ln_ssm`` (SSM only), ``ssm``, ``ln_attn_out`` and
+``ln_ssm_out`` (hybrid), ``ln_mlp``, ``mlp``) and, untied, ``unembed``
+(d, V).  The reference stacks the layers on a leading L axis and scans
+them; here a Python loop runs them in turn
 (``interop.model_params_from_reference`` unstacks a reference tree).
 
 The decode cache keeps the reference's stacked layout, so a session file
 carries its keys, shapes and dtypes: ``{"attn": {"k": (L,B,S,K,hd), "v":
 ..., "pos_map": (L,S) int32}}`` (a per-layer list for mixed-window
-stacks), or for MLA the latent ``{"attn": {"ckv": (L,B,S,kv_lora),
-"krope": (L,B,S,qk_rope), "pos_map": (L,S)}}``.  Each layer's decode
+stacks, hymba's among them), for MLA the latent ``{"attn": {"ckv":
+(L,B,S,kv_lora), "krope": (L,B,S,qk_rope), "pos_map": (L,S)}}``, and
+for an SSD layer the float32 recurrent state ``{"ssm": {"conv":
+(L,B,w-1,din+2N), "h": (L,B,nh,hd,N)}}`` beside it.  Each layer's decode
 writes its slice of the cache in place.
 
 Training keeps the parameters in the reference's layout (``param_tree``:
@@ -23,9 +29,11 @@ per-layer gradients back.  ``lm_loss`` is the reference's cross-entropy
 plus the MoE layers' load-balance loss; ``remat="block"`` recomputes
 each layer in the backward (``torch.utils.checkpoint``).
 
-SSM, the hybrid layer loop and the frontends wait for later slices
-(ROADMAP Queue 1, items 7c-7e); ``shd.constrain`` is dropped (a no-op on
-one device).
+Every layer window is a Python int, so ``chunked_sdpa`` skips the fully
+masked blocks of hymba's sliding-window layers too, where the reference
+traces mixed windows and visits every block (the skipped blocks add
+exactly nothing).  The frontends wait for a later slice (ROADMAP Queue
+1, item 7e); ``shd.constrain`` is dropped (a no-op on one device).
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.tree import leaves_with_keys, nest
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 
 
@@ -49,6 +58,13 @@ class Layer(nn.Module):
             self.ln_attn = L.RMSNorm(d, device)
             self.attn = (L.MLA(cfg, device) if cfg.attn_kind == "mla"
                          else L.GQA(cfg, device))
+        if cfg.ssm_state:
+            if not cfg.n_heads:
+                self.ln_ssm = L.RMSNorm(d, device)
+            self.ssm = S.SSD(cfg, device)
+            if cfg.family == "hybrid":
+                self.ln_attn_out = L.RMSNorm(d, device)
+                self.ln_ssm_out = L.RMSNorm(d, device)
         if cfg.d_ff:
             self.ln_mlp = L.RMSNorm(d, device)
             self.mlp = (L.MoE(cfg, device) if cfg.n_experts
@@ -82,9 +98,10 @@ class LM(nn.Module):
 def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> LM:
     """Random weights at the reference's scales, drawn from `gen` (a
     generator on `device`): embed N(0, 0.02), dense weights fan-in^-1/2,
-    ``wo`` (H*hd)^-1/2, untied unembed d^-1/2, biases 0, norm scales 1.
-    Drawn in float32 one layer's weight at a time and stored in
-    ``cfg.dtype``; norm scales stay float32.  The draws are torch's, not
+    ``wo`` (H*hd)^-1/2, untied unembed d^-1/2, biases 0, norm scales 1,
+    the SSD's values as ``ssm.ssd_init`` gives them.  Drawn in float32
+    one layer's weight at a time and stored in ``cfg.dtype``; norm
+    scales stay float32.  The draws are torch's, not
     jax's: only the scales match."""
     p = LM(cfg, device)
     p.embed.copy_(torch.randn(p.embed.shape, generator=gen,
@@ -93,6 +110,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> LM:
         if cfg.n_heads:
             (L.mla_init if cfg.attn_kind == "mla" else L.gqa_init)(
                 layer.attn, gen)
+        if cfg.ssm_state:
+            S.ssd_init(layer.ssm, gen)
         if cfg.d_ff:
             (L.moe_init if cfg.n_experts else L.ffn_init)(layer.mlp, gen)
     if not cfg.tie_embeddings:
@@ -141,11 +160,46 @@ def _mlp_block(p, x, cfg: ModelConfig, a_out=None):
     return x + L.ffn_apply(p.mlp, h), None
 
 
-def layer_apply(p, x, *, cfg: ModelConfig, positions, window: int):
-    """x (B,T,d) -> (x', aux_loss); the attention and FFN branches."""
-    a_out = None
+def _ssm_branch(p, h, cfg: ModelConfig, valid_len, with_cache: bool):
+    """The SSD on the normed input `h` -> (out, its decode cache or None):
+    the prefill's ``ssd_prefill_cache`` (run without `valid_len`, as the
+    reference runs it) or the forward's ``ssd_apply``."""
+    if with_cache:
+        return S.ssd_prefill_cache(p.ssm, h, cfg=cfg)
+    return S.ssd_apply(p.ssm, h, cfg=cfg, valid_len=valid_len)[0], None
+
+
+def _mixer(p, x, cfg: ModelConfig, positions, window: int, valid_len=None,
+           with_cache: bool = False):
+    """The layer's token mixer -> (out or None, the attention's (k, v) or
+    MLA's latents or None, the SSD's decode cache or None).  Hybrid runs
+    attention and SSD on the same normed input, normalises each branch's
+    output and averages them."""
+    if cfg.family == "hybrid":
+        h = L.rms_norm(p.ln_attn, x, cfg.norm_eps)
+        a_out, kv = L.gqa_apply(p.attn, h, cfg=cfg, positions=positions,
+                                window=window, prefix=cfg.n_prefix,
+                                has_window=bool(cfg.sliding_window))
+        s_out, sc = _ssm_branch(p, h, cfg, valid_len, with_cache)
+        a_out = L.rms_norm(p.ln_attn_out, a_out, cfg.norm_eps)
+        s_out = L.rms_norm(p.ln_ssm_out, s_out, cfg.norm_eps)
+        return 0.5 * (a_out + s_out), kv, sc
     if cfg.n_heads:
-        a_out, _ = _attn_block(p, x, cfg, positions, window)
+        a_out, kv = _attn_block(p, x, cfg, positions, window)
+        return a_out, kv, None
+    if cfg.ssm_state:
+        h = L.rms_norm(p.ln_ssm, x, cfg.norm_eps)
+        s_out, sc = _ssm_branch(p, h, cfg, valid_len, with_cache)
+        return s_out, None, sc
+    return None, None, None
+
+
+def layer_apply(p, x, *, cfg: ModelConfig, positions, window: int,
+                valid_len=None):
+    """x (B,T,d) -> (x', aux_loss); the token mixer (attention, SSD or
+    both) and the FFN branch.  `valid_len`: the SSD's state ignores the
+    positions from it on."""
+    a_out, _, _ = _mixer(p, x, cfg, positions, window, valid_len)
     x, aux = _mlp_block(p, x, cfg, a_out)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -167,9 +221,10 @@ def unembed(params: LM, cfg: ModelConfig, x):
     return torch.matmul(x, w).to(torch.float32)
 
 
-def forward(params: LM, cfg: ModelConfig, tokens):
+def forward(params: LM, cfg: ModelConfig, tokens, valid_len=None):
     """-> (logits (B,T,V) f32, aux_loss).  Builds a graph only for
-    parameters that require grad (training's ``bind_params``)."""
+    parameters that require grad (training's ``bind_params``).
+    `valid_len` goes to every SSD layer (``ssm.ssd_apply``)."""
     remat = cfg.remat == "block" and torch.is_grad_enabled()
     with L.matmul_numerics():
         x = embed_inputs(params, cfg, tokens)
@@ -177,7 +232,8 @@ def forward(params: LM, cfg: ModelConfig, tokens):
         positions = torch.arange(T, dtype=torch.int32, device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp, w in zip(params.layers, layer_flags(cfg)):
-            kw = dict(cfg=cfg, positions=positions, window=int(w))
+            kw = dict(cfg=cfg, positions=positions, window=int(w),
+                      valid_len=valid_len)
             if remat:
                 # keep the layer's input, recompute its inside in the
                 # backward (the reference saves only "block_out")
@@ -271,17 +327,27 @@ def _attn_cache_spec(cfg: ModelConfig, window: int, batch, s_max, dtype,
     return L.gqa_empty_cache(cfg, batch, s_max, window, dtype, device)
 
 
+def _one_cache(cfg: ModelConfig, window: int, batch, s_max, device):
+    """One layer's zeroed cache: {"attn"?, "ssm"?}."""
+    c = {}
+    if cfg.n_heads:
+        c["attn"] = _attn_cache_spec(cfg, window, batch, s_max,
+                                     L.cdtype(cfg), device)
+    if cfg.ssm_state:
+        c["ssm"] = S.ssd_empty_cache(cfg, batch, device)
+    return c
+
+
 def empty_cache(cfg: ModelConfig, batch, s_max, stacked: bool = True,
                 device=None):
     """Decode cache.  stacked=True -> leading L axis (uniform windows)."""
-    dt = L.cdtype(cfg)
     windows = [int(w) for w in layer_flags(cfg)]
     if stacked:
-        one = _attn_cache_spec(cfg, windows[0], batch, s_max, dt, device)
-        return {"attn": {k: torch.stack([v] * cfg.n_layers)
-                         for k, v in one.items()}}
-    return [{"attn": _attn_cache_spec(cfg, w, batch, s_max, dt, device)}
-            for w in windows]
+        one = _one_cache(cfg, windows[0], batch, s_max, device)
+        return {g: {k: torch.stack([v] * cfg.n_layers)
+                    for k, v in leaves.items()}
+                for g, leaves in one.items()}
+    return [_one_cache(cfg, w, batch, s_max, device) for w in windows]
 
 
 def uses_layer_loop(cfg: ModelConfig) -> bool:
@@ -293,15 +359,26 @@ def _layer_cache(cache, i: int):
     """Layer i's cache, as views into the stacked tensors."""
     if isinstance(cache, list):
         return cache[i]
-    return {"attn": {k: v[i] for k, v in cache["attn"].items()}}
+    return {g: {k: v[i] for k, v in leaves.items()}
+            for g, leaves in cache.items()}
 
 
 def layer_decode(p, x, cache, *, cfg: ModelConfig, pos, window: int,
                  prefix: int = 0):
-    """One layer, one token.  cache: {"attn": ...} for this layer,
+    """One layer, one token.  cache: {"attn"?, "ssm"?} for this layer,
     updated in place."""
     a_out = None
-    if cfg.n_heads:
+    if cfg.family == "hybrid":
+        h = L.rms_norm(p.ln_attn, x, cfg.norm_eps)
+        a, _ = L.gqa_decode(p.attn, h, cache["attn"], cfg=cfg, pos=pos,
+                            window=window, prefix=prefix)
+        s, _ = S.ssd_decode(p.ssm, h, cache["ssm"], cfg=cfg)
+        a_out = 0.5 * (L.rms_norm(p.ln_attn_out, a, cfg.norm_eps)
+                       + L.rms_norm(p.ln_ssm_out, s, cfg.norm_eps))
+    elif cfg.ssm_state:
+        h = L.rms_norm(p.ln_ssm, x, cfg.norm_eps)
+        a_out, _ = S.ssd_decode(p.ssm, h, cache["ssm"], cfg=cfg)
+    elif cfg.n_heads:
         h = L.rms_norm(p.ln_attn, x, cfg.norm_eps)
         if cfg.attn_kind == "mla":
             a_out, _ = L.mla_decode(p.attn, h, cache["attn"], cfg=cfg,
@@ -350,14 +427,16 @@ def prefill(params: LM, cfg: ModelConfig, tokens,
         cache = empty_cache(cfg, B, s_max, stacked=not uses_layer_loop(cfg),
                             device=dev)
         for i, lp in enumerate(params.layers):
-            a_out = None
-            if cfg.n_heads:
-                a_out, kv = _attn_block(lp, x, cfg, positions, windows[i])
-                c = _layer_cache(cache, i)["attn"]
-                if cfg.attn_kind == "mla":
-                    _mla_to_cache(c, *kv, T, dt)
-                else:
-                    _kv_to_cache(c, *kv, T, windows[i], dt)
+            a_out, kv, sc = _mixer(lp, x, cfg, positions, windows[i],
+                                   with_cache=True)
+            c = _layer_cache(cache, i)
+            if kv is not None and cfg.attn_kind == "mla":
+                _mla_to_cache(c["attn"], *kv, T, dt)
+            elif kv is not None:
+                _kv_to_cache(c["attn"], *kv, T, windows[i], dt)
+            if sc is not None:
+                for k, v in sc.items():
+                    c["ssm"][k].copy_(v)
             x, _ = _mlp_block(lp, x, cfg, a_out)
         x = L.rms_norm(params.ln_f, x[:, -1:, :], cfg.norm_eps)
         logits = unembed(params, cfg, x)

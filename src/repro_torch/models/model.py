@@ -1,14 +1,16 @@
 """Public model API: --arch <id> -> Model(init/loss/forward/prefill/decode)
 (the port of the reference's ``models/model.py``: the dense and MoE
-families, with GQA or MLA attention).
+families with GQA or MLA attention, the SSM family and the hybrid
+family).
 
 The model runs on the CUDA device unless the caller passes
 ``device="cpu"``; without a GPU a CUDA device raises.  Its parameters
 never require grad, so serving builds no graph; training binds views of
-the reference-layout tree that do (``lm.bind_params``).  Families and
-attention kinds this slice does not port raise ``NotImplementedError``
-naming their ROADMAP item.  ``input_specs``/``shape_params`` (the
-reference's dry-run stand-ins) come with the launch tooling (item 8).
+the reference-layout tree that do (``lm.bind_params``).  The frontend
+families (patch and frame embeddings) are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item.
+``input_specs``/``shape_params`` (the reference's dry-run stand-ins)
+come with the launch tooling (item 8).
 """
 from __future__ import annotations
 
@@ -20,12 +22,8 @@ from repro_torch.core.chain import resolve_device
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 
-# What this slice does not port, and where the ROADMAP queues it.
+# What the port does not have yet, and where the ROADMAP queues it.
 _UNPORTED = (
-    (lambda c: c.family == "ssm", "the SSM (SSD) stack",
-     "ROADMAP Queue 1, item 7c (SSM)"),
-    (lambda c: c.family == "hybrid", "the hybrid layer loop",
-     "ROADMAP Queue 1, item 7d (hybrid)"),
     (lambda c: bool(c.frontend), "the patch/frame frontends",
      "ROADMAP Queue 1, item 7e (frontends)"),
 )
@@ -36,7 +34,8 @@ def check_supported(cfg: ModelConfig) -> None:
         if test(cfg):
             raise NotImplementedError(
                 f"{cfg.name} needs {what}, not yet ported to PyTorch "
-                f"({item}); the port serves the dense and MoE families")
+                f"({item}); the port serves the dense, MoE, SSM and "
+                "hybrid families")
 
 
 class Model:

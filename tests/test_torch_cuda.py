@@ -950,3 +950,62 @@ def test_cuda_family_engine_sessions_match_cpu(cuda, tmp_path, monkeypatch,
     assert rans.DECODE.launches == want > 0
     keys = ("ckv", "krope") if model.cfg.attn_kind == "mla" else ("k", "v")
     assert all(e_card.last_cache["attn"][k].is_cuda for k in keys)
+
+
+# -- the SSM and hybrid families ----------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b"])
+def test_cuda_ssm_hybrid_models_match_cpu(cuda, arch):
+    """forward, prefill (every cache leaf: the SSD's float32 conv and h,
+    hymba's per-layer attention beside them, its 40-token prompt past
+    the 32-token window) and eight decode steps on the card against the
+    CPU within 1e-3; then one train step's loss and gradients (every
+    leaf within 1e-3 of its largest magnitude)."""
+    from repro_torch.core.tree import leaves_with_keys
+    from repro_torch.models import lm
+    from repro_torch.train.trainer import Trainer, loss_and_grads
+
+    model, cpu, card = _family_models(cuda, arch)
+    cfg = model.cfg
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 48)))
+    got, _ = lm.forward(card, cfg, toks[:, :40].to(cuda))
+    want, _ = lm.forward(cpu, cfg, toks[:, :40])
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-3,
+                               atol=1e-3)
+    got = lm.prefill(card, cfg, toks[:, :40].to(cuda), s_max=48)
+    want = lm.prefill(cpu, cfg, toks[:, :40], s_max=48)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(),
+                               rtol=1e-3, atol=1e-3)
+    gl = dict(leaves_with_keys(got[1]))
+    for k, w in leaves_with_keys(want[1]):
+        g = gl[k]
+        assert g.is_cuda and g.dtype == w.dtype and g.shape == w.shape, k
+        np.testing.assert_allclose(g.cpu().float().numpy(),
+                                   w.float().numpy(), rtol=1e-3, atol=1e-3)
+    assert any(k.endswith("ssm/h") for k in gl)
+    gc, wc, pos = got[1], want[1], want[2]
+    for i in range(40, 48):
+        tok = toks[:, i:i + 1]
+        g_log, gc = lm.decode_step(card, cfg, gc, tok.to(cuda), pos.to(cuda))
+        w_log, wc = lm.decode_step(cpu, cfg, wc, tok, pos)
+        np.testing.assert_allclose(g_log.cpu().numpy(), w_log.numpy(),
+                                   rtol=1e-3, atol=1e-3)
+        pos = pos + 1
+
+    state = Trainer(model, device="cpu").init_state(0)
+    card_state = interop.train_state_from_reference(
+        interop.train_state_to_reference(state), cfg, device=cuda)
+    batch = model.sample_batch(torch.Generator().manual_seed(0), 2, 33)
+    wl, _, wg = loss_and_grads(model, state.params, batch)
+    gl, _, gg = loss_and_grads(model, card_state.params,
+                               {k: v.to(cuda) for k, v in batch.items()})
+    np.testing.assert_allclose(float(gl), float(wl), rtol=1e-4)
+    got = dict(leaves_with_keys(gg))
+    for k, w in leaves_with_keys(wg):
+        g = got[k]
+        assert g.is_cuda and bool(torch.isfinite(g).all()), k
+        w = w.float().numpy()
+        np.testing.assert_allclose(g.cpu().float().numpy(), w, rtol=1e-3,
+                                   atol=1e-3 * np.abs(w).max(), err_msg=k)

@@ -160,6 +160,40 @@ def test_one_shard_matches_jax_sharded(fixed_domain):
         assert got[1].domain_lo != single[1].domain_lo
 
 
+@pytest.mark.parametrize("chain", ["auto", "host"])
+@pytest.mark.parametrize("shards", [1, 3])
+def test_sharded_original_reference_matches_jax(shards, chain):
+    """reference="original" through the sharded driver (its chain.replace
+    branch): steps equal the port's single-device ones, which equal the
+    JAX package's; at P = 1 every field, meta included, equals the JAX
+    ShardedCompressor's on a one-device mesh."""
+    import jax
+    from jax.sharding import Mesh
+    from repro.distributed.pipeline import ShardedCompressor as JSharded
+
+    arrays = _series()
+    kw = dict(reference="original", block_bytes=1024)
+    single = repro_torch.compress_series(arrays, repro_torch.NumarckParams(
+        **kw), device="cpu")
+    _assert_same(single, jcompress.compress_series(arrays, JParams(**kw)),
+                 skip=())
+    sc = ShardedCompressor(_cpu(shards), repro_torch.NumarckParams(**kw),
+                           chain=chain)
+    try:
+        got = sc.compress_series(arrays)
+        state = sc.reference_state()
+    finally:
+        sc.close()
+    _assert_same(got, single)
+    np.testing.assert_array_equal(state, arrays[-1])
+    if shards == 1:
+        js = JSharded(Mesh(np.array(jax.devices()[:1]), ("data",)), "data",
+                      JParams(**kw), use_pallas=False)
+        want = js.compress_series(arrays)
+        js.close()
+        _assert_same(got, want, skip=())
+
+
 _SHRINK = textwrap.dedent("""
     import os
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"

@@ -262,21 +262,27 @@ def test_forward_prefill_and_decode_match_jax(name):
 
 def _assert_cache_close(got, want, tol):
     """The stacked cache (a per-layer list for mixed windows): the
-    reference's keys, shapes and dtypes."""
+    reference's keys, shapes and dtypes -- the attention's {k, v,
+    pos_map} and an SSD layer's float32 {conv, h} state."""
     if isinstance(want, list):
         assert isinstance(got, list) and len(got) == len(want)
         for g, w in zip(got, want):
             _assert_cache_close(g, w, tol)
         return
-    assert set(got["attn"]) == set(want["attn"]) == {"k", "v", "pos_map"}
-    for key, w in want["attn"].items():
-        g = got["attn"][key]
-        assert tuple(g.shape) == w.shape, key
-        assert str(g.dtype).removeprefix("torch.") == str(w.dtype), key
-        if key == "pos_map":
-            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-        else:
-            _close(g, w, tol)
+    assert set(got) == set(want) and set(want) <= {"attn", "ssm"}
+    if "attn" in want:
+        assert set(got["attn"]) == set(want["attn"]) == {"k", "v", "pos_map"}
+    if "ssm" in want:
+        assert set(got["ssm"]) == set(want["ssm"]) == {"conv", "h"}
+    for group in want:
+        for key, w in want[group].items():
+            g = got[group][key]
+            assert tuple(g.shape) == w.shape, key
+            assert str(g.dtype).removeprefix("torch.") == str(w.dtype), key
+            if key == "pos_map":
+                np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+            else:
+                _close(g, w, tol)
 
 
 def test_swa_prefill_longer_than_the_window_fills_the_ring():
@@ -357,9 +363,9 @@ def test_init_scales_and_dtypes():
 @pytest.mark.parametrize("arch", list_archs())
 def test_param_counts_match_the_reference(arch):
     """Every config's param_count (and active count) is the reference's;
-    for the dense and MoE archs (GQA or MLA) the port's Model counts the
-    reference's leaves, and SSM, hybrid and the frontends raise
-    NotImplementedError naming the ROADMAP item."""
+    for the dense, MoE (GQA or MLA), SSM and hybrid archs the port's
+    Model counts the reference's leaves, and only the frontends raise
+    NotImplementedError naming their ROADMAP item (7e)."""
     cfg, jcfg = get_config(arch), jget_config(arch)
     assert cfg == type(cfg)(**{f: getattr(jcfg, f)
                                for f in cfg.__dataclass_fields__})
@@ -368,8 +374,8 @@ def test_param_counts_match_the_reference(arch):
     try:
         model = build(arch)
     except NotImplementedError as e:
-        assert "ROADMAP Queue 1, item 7" in str(e)
-        assert jcfg.family in ("ssm", "hybrid") or jcfg.frontend
+        assert "ROADMAP Queue 1, item 7e" in str(e)
+        assert jcfg.frontend
         return
     # The reference's leaves of its abstract parameter tree, summed in
     # Python ints (its Model.param_count takes jnp.prod in int32, which
@@ -388,6 +394,12 @@ def test_sample_batch_and_empty_cache():
     cache = model.empty_cache(3, 16, device="cpu")
     jcache = JModel(jreduced(jget_config("llama3.2-1b"))).empty_cache(3, 16)
     _assert_cache_close(cache, jcache, 0.0)
+    from repro.configs import get_smoke_config as jsmoke
+    from repro_torch.configs import get_smoke_config
+    for arch in ("mamba2-780m", "hymba-1.5b"):
+        _assert_cache_close(
+            Model(get_smoke_config(arch)).empty_cache(3, 40, device="cpu"),
+            JModel(jsmoke(arch)).empty_cache(3, 40), 0.0)
 
 
 def test_cuda_default_raises_without_a_gpu():

@@ -247,6 +247,28 @@ def test_strategy_series_matches_jax(series, strategy, codec, monkeypatch):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("chain", ["host", "device"])
+@pytest.mark.parametrize("codec", ["zlib", "rans"])
+@pytest.mark.parametrize("strategy", ["topk", "equal"])
+def test_original_reference_series_matches_jax(series, strategy, codec, chain,
+                                               monkeypatch):
+    """reference="original" (each step against the original previous step,
+    the drivers' chain.replace branch) with the host and the device
+    chain: every step field for field and blob for blob, and both
+    decompressors' arrays bit for bit, f32 and f64."""
+    monkeypatch.setattr(jrans, "DEVICE_MIN_BYTES", 0)
+    monkeypatch.setattr(trans, "DEVICE_MIN_BYTES", 0)
+    kw = dict(reference="original", strategy=strategy, codec=codec)
+    want = jcompress.compress_series(series, JParams(**kw))
+    got = repro_torch.compress_series(series, repro_torch.NumarckParams(**kw),
+                                      chain=chain, device="cpu")
+    _assert_steps_equal(got, want)
+    for a, b in zip(repro_torch.decompress_series(got, device="cpu"),
+                    jcompress.decompress_series(want)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.parametrize("strategy", ["equal", "log", "kmeans"])
 def test_port_reads_jax_strategy_series(series, strategy, tmp_path):
     """NCK files the JAX package wrote with each strategy (zlib and rans
@@ -287,7 +309,8 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.checkpoint, repro_torch.models.model, "
             "repro_torch.serve.engine, repro_torch.configs, "
             "repro_torch.train.trainer, repro_torch.launch.train, "
-            "repro_torch.data.tokens\n"
+            "repro_torch.data.tokens, repro_torch.faults, "
+            "repro_torch.models.ssm\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
             "assert not bad, bad\n")
@@ -313,3 +336,108 @@ def test_no_jax_or_repro_import_in_the_port():
                 assert name.split(".")[0] not in ("jax", "jaxlib", "repro",
                                                   "ml_dtypes"), \
                     f"{f}: imports {name}"
+
+
+# Reference modules without a port module yet, and where the ROADMAP
+# queues each.
+UNPORTED_MODULES = {
+    "repro.analysis": "item 9 (lint for the port)",
+    "repro.baselines": "item 8a (NumPy-only; the benches import them)",
+    "repro.core.dp_oracle": "item 8a (NumPy-only oracle)",
+    "repro.checkpoint.elastic": "item 8b",
+    "repro.distributed.pipeline_parallel": "item 8b",
+    "repro.distributed.sharding": "item 8b",
+    "repro.launch.mesh": "item 8b",
+    "repro.launch.runtime_env": "item 8b",
+    "repro.launch.cost_model": "item 8c",
+    "repro.launch.dryrun": "item 8c",
+    "repro.models.unroll": "item 8c",
+    "repro.kernels.ref": "not ported: the plain versions fill its role",
+}
+_RANS_LOWERINGS = (
+    "bytes_to_words", "decode_bytes_group", "decode_idx_group_packed",
+    "decode_idx_group_syms", "decode_scan_body", "encode_bytes_body",
+    "encode_idx_group", "encode_sym_group", "pack_words", "sample_words",
+    "sampled_idx_bytes", "unpack_group", "unpack_words", "words_to_bytes")
+# Names in a reference module's __all__ that its port module does not
+# export: the jnp lowerings and Pallas entry points that the hand-written
+# kernels (their ``*_cuda`` wrappers and ``*_plain`` versions) replace,
+# and what the port holds in modules instead.
+NOT_EXPORTED = {
+    "repro.core.binning": {"topk_centers": "jnp lowering; the centers are "
+                           "core.pipeline.topk_centers'"},
+    "repro.core.packing": dict.fromkeys(
+        ("pack_indices_jnp", "unpack_indices_jnp"),
+        "jnp lowerings; kernels.bitpack and packing.pack_indices"),
+    "repro.kernels.bitpack": {"GROUP": "core.packing.GROUP",
+                              "pack_bits": "pack_bits_cuda / _plain"},
+    "repro.kernels.change_ratio": {
+        "change_ratio_bins": "change_ratio_bins_cuda / _plain"},
+    "repro.kernels.dequant": dict.fromkeys(
+        ("dequantize", "dequantize_jnp"), "dequantize_cuda / _plain"),
+    "repro.kernels.hist": {"histogram": "histogram_cuda / _plain"},
+    "repro.kernels.ops": dict.fromkeys(
+        ("chain_advance_core", "patch_exceptions"),
+        "jnp lowerings; kernels.dequant.chain_advance_cuda / _plain and "
+        "patch_exceptions"),
+    "repro.kernels.rans": dict.fromkeys(
+        _RANS_LOWERINGS, "the scan bodies and their jnp helpers; "
+        "csrc/rans.cu's kernels and the *_plain lane loops"),
+    "repro.launch.distributed": {"global_mesh": "item 8b (a mesh)"},
+    "repro.models.layers": {"rms_norm_init": "the RMSNorm module"},
+    "repro.models.lm": {"init_layer": "the Layer module and init_params"},
+}
+
+
+def test_every_reference_export_has_a_port_export():
+    """Each reference module's __all__ against its port module's: every
+    name exported there is exported here, but for the kernels' jnp
+    lowerings and the names listed in NOT_EXPORTED; modules not yet
+    ported are the ROADMAP's (UNPORTED_MODULES).  Every name a port
+    module exports exists."""
+    import importlib
+    ref_root = ROOT / "src" / "repro"
+    seen = set()
+    for f in sorted(ref_root.rglob("*.py")):
+        parts = f.relative_to(ROOT / "src").with_suffix("").parts
+        if parts[-1] == "__main__":
+            continue
+        name = ".".join(parts).removesuffix(".__init__")
+        if any(name == m or name.startswith(m + ".")
+               for m in UNPORTED_MODULES):
+            seen.add(next(m for m in UNPORTED_MODULES
+                          if name == m or name.startswith(m + ".")))
+            continue
+        port = importlib.import_module("repro_torch" + name[len("repro"):])
+        want = set(getattr(importlib.import_module(name), "__all__", ()))
+        got = set(getattr(port, "__all__", ()))
+        assert sorted(want - got) == sorted(NOT_EXPORTED.get(name, {})), name
+        for n in got:
+            assert hasattr(port, n), f"{port.__name__}.{n}"
+    assert seen == set(UNPORTED_MODULES)
+
+
+def test_missing_core_functions_match_the_reference():
+    """The four names the port's core modules lacked, value for value."""
+    from repro.core import blocks as jb, packing as jp, select_b as js
+    from repro.core import types as jt
+    from repro_torch.core import blocks as tb, packing as tp
+    from repro_torch.core import select_b as ts, types as tt
+    for k in range(0, 3000):
+        assert tt.required_b_for_k(k) == jt.required_b_for_k(k)
+    for n in (0, 1, 7, 8, 9, 1000, 12345):
+        for b in range(1, 25):
+            assert tp.packed_nbytes(n, b) == jp.packed_nbytes(n, b)
+    rng = np.random.default_rng(0)
+    for m, n in ((5, 100), (3000, 1 << 20), (70000, 1 << 25)):
+        counts = np.sort(rng.integers(0, n // m + 2, m))[::-1].astype(
+            np.int32)
+        for b_max in (8, 16, 24):
+            assert ts.choose_b_host(counts, n, 4, b_max) == \
+                js.choose_b_host(counts, n, 4, b_max)
+    blocks = [bytes(rng.integers(0, 256, k, dtype=np.uint8)) for k in
+              (10, 300, 0)]
+    raw = np.array([40, 900, 5])
+    assert tb.zlib_ratio(blocks, raw) == jb.zlib_ratio(blocks, raw)
+    from repro_torch.core import NCKReader, compress_series  # noqa: F401
+    from repro_torch.faults import Backoff, CorruptBlockError  # noqa: F401

@@ -283,11 +283,34 @@ def test_schedule_and_apply_updates_match_jax():
                                        atol=1e-9, err_msg=f"{label} {k}")
 
 
-@pytest.mark.parametrize("bits", [0, 6])
-def test_fit_matches_jax(bits):
+# The fits beyond the dense TINY model: the smoke configs of the MLA, MoE
+# (at its drop-free smoke capacity and at the full configs' 1.25), SSM and
+# hybrid families.
+FIT_ARCHS = {"mla": ("minicpm3-4b", {}), "moe": ("mixtral-8x7b", {}),
+             "moe_cf125": ("mixtral-8x7b", {"capacity_factor": 1.25}),
+             "ssm": ("mamba2-780m", {}), "hybrid": ("hymba-1.5b", {})}
+
+
+def fit_models(family):
+    if family == "dense":
+        return models()
+    import dataclasses
+    from repro.configs import get_smoke_config as jsmoke
+    from repro_torch.configs import get_smoke_config
+    arch, kw = FIT_ARCHS[family]
+    return (JModel(dataclasses.replace(jsmoke(arch), **kw)),
+            Model(dataclasses.replace(get_smoke_config(arch), **kw)))
+
+
+@pytest.mark.parametrize("family,bits", [
+    pytest.param("dense", 0, id="0"), pytest.param("dense", 6, id="6")] + [
+    pytest.param(f, b, id=f"{f}-{b}") for f in FIT_ARCHS for b in (0, 6)])
+def test_fit_matches_jax(family, bits):
     """Ten steps of both trainers from the same initial parameters and
-    batches: the losses within FIT_RTOL."""
-    jm, tm = models()
+    batches: the losses within FIT_RTOL, for the dense model and the
+    MLA, MoE, SSM and hybrid families."""
+    jm, tm = fit_models(family)
+    V = tm.cfg.vocab_size
     jt = JTrainer(jm, JTrainerConfig(opt=jopt.AdamWConfig(**opt_cfg()),
                                      grad_compression_bits=bits))
     tt = Trainer(tm, TrainerConfig(opt=optim.AdamWConfig(**opt_cfg()),
@@ -295,9 +318,9 @@ def test_fit_matches_jax(bits):
                  device="cpu")
     state = port_state(jt, tm.cfg)
     _, _, want = jt.fit(jt.init_state(jax.random.PRNGKey(0)),
-                        iter(JPipe(128, 33, 8)), n_steps=10, **QUIET)
+                        iter(JPipe(V, 33, 8)), n_steps=10, **QUIET)
     hist.KERNEL.launches = 0
-    state, step, got = tt.fit(state, iter(TokenPipeline(128, 33, 8)),
+    state, step, got = tt.fit(state, iter(TokenPipeline(V, 33, 8)),
                               n_steps=10, **QUIET)
     assert step == 10 and int(state.opt_state.step) == 10
     np.testing.assert_allclose(got, want, rtol=FIT_RTOL[bits])
