@@ -69,8 +69,16 @@ Phases, each fatal on failure (exit code 1, no result line):
               dual form over four chunks of 256, the float32 state h and
               conv tail through the decode kernel) and serve_hybrid
               (hymba-1.5b uncut, 1,300 prompt tokens past its 1,024-token
-              window: attention and SSD side by side, per-layer caches);
-              their rANS session round trip runs on one request.
+              window: attention and SSD side by side, per-layer caches),
+              serve_vlm (paligemma-3b uncut: 512-token prompts whose
+              first 256 fall under the prefix-LM mask; through the Model
+              API 256 seeded patch embeds + 256 text tokens, 32 greedy
+              tokens through decode_step(token=), the port's scaled token
+              path; the prefix mask at 2 layers, card against the CPU)
+              and serve_audio (musicgen-medium uncut: 48 MHA layers;
+              through the Model API 256 seeded frame embeds, 32 steps of
+              decode_step(embed=)).  Every rANS session round trip runs
+              on one request (zlib on all four).
   11. train   Trainer.fit on the card: Llama-3.2-1B at full width and depth
               (bf16, seeded on the card), 4 x 256 TokenPipeline tokens a
               step, 8 steps with gradient compression off and 8 at B = 6
@@ -84,12 +92,21 @@ Phases, each fatal on failure (exit code 1, no result line):
               (kernels 1-4 once per lossy leaf), a new Trainer restores
               step 4 and trains to 6, matching the uninterrupted run.
               Then minicpm3-4b (16 of 62 layers), mixtral-8x7b (1 of
-              32), mamba2-780m and hymba-1.5b (uncut) at full width: 4
-              steps at B = 6 (the histogram kernel once per leaf per
-              step), finite losses and gradients, the MoE aux > 0, and
-              quantize_dequantize of a real wkv_a / we_down / in_proj /
-              A_log gradient card against CPU, bit for bit.
-  12. kernels each kernel against its plain version on the card, exactly,
+              32), mamba2-780m, hymba-1.5b, paligemma-3b (4 x 512:
+              patches and text) and musicgen-medium (4 x 256 frames,
+              remat="block") uncut at full width: 4 steps at B = 6 (the
+              histogram kernel once per leaf per step), finite losses
+              and gradients, the MoE aux > 0, and quantize_dequantize of
+              a real wkv_a / we_down / in_proj / A_log / embed / w_up
+              gradient card against CPU, bit for bit.
+  12. baselines  the paper's comparison compressors (repro_torch.baselines)
+              on a CMIP (f32) and a Sedov (f64) delta step at E = 1e-3:
+              ISABELA (window 1,024, 32 knots; the bit-pack kernel once
+              per compress, on the permutations), ZFP (tol = mean |x| *
+              E) and zlib; payloads byte-equal to device="cpu",
+              decompressed arrays equal and within their bounds; each
+              compression ratio beside NUMARCK's, ms on the card.
+  13. kernels each kernel against its plain version on the card, exactly,
               at n = 42*360*240 (the CMIP step) and n = 2^26, with timings
               (median of 20 launches, CUDA events, after warm-up) beside
               the bound the card's memory and arithmetic rates set.  The
@@ -1481,28 +1498,39 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 256, 32
 COS_MIN = 0.99                     # logits' cosine similarity, every position
 F32_LAYERS = 2                     # layers in the bf16-vs-f32 check where the
                                    # whole model's f32 copy does not fit
-# The MLA, MoE, SSM and hybrid families served the same way (label, arch,
-# decoder layers kept, why the depth is cut, prompt tokens, requests in the
-# rANS session round trip).  Mixtral's 32 layers are 93.4 GB of bf16
+# The MLA, MoE, SSM, hybrid and frontend families served the same way
+# (label, arch, decoder layers kept, why the depth is cut, prompt tokens,
+# requests in the rANS session round trip).  Mixtral's 32 layers are 93.4 GB of bf16
 # weights: 16 of them (47.0 GB) fit one 80 GB card beside the caches.
 # minicpm3-4b runs 31 of its 62 layers so that the whole run stays well
 # inside its 1,200 s (a host-bound 1,029 s with all 62, PERF.md section 4).
 # mamba2's 1,000 prompt tokens make three full SSD chunks of 256 and a
 # padded fourth; hymba's 1,300 run past its 1,024-token window (the ring
-# wraps on its 29 SWA layers) and pad its sixth chunk.  Their rANS session
-# round trip runs on one request (zlib on all four): the host rANS coder
-# saves at ~4 MB/s, and four requests' state is 310 MB (mamba2) and ~188
-# MB (hymba).
+# wraps on its 29 SWA layers) and pad its sixth chunk.  Every serve
+# phase's rANS session round trip runs on one request (zlib on all
+# four) for the run's time: the host rANS coder saves at 3-4 MB/s, and
+# four requests' state is 42 MB (Llama) to 378 MB (musicgen).
 RANS_CUT = ("rANS session round trip on 1 of 4 requests: the host rANS "
             "coder saves at ~4 MB/s (PERF.md)")
+RANS_REQUESTS = 1
 FAMILIES = (("serve_mla", "minicpm3-4b", 31,
              "31 of 62 layers: chip_smoke's time limit (PERF.md section 4)",
-             SERVE_PROMPT, SERVE_BATCH),
+             SERVE_PROMPT, RANS_REQUESTS),
             ("serve_moe", "mixtral-8x7b", 16,
              "16 of 32 layers: 93.4 GB of bf16 weights do not fit one 80 GB "
-             "card", SERVE_PROMPT, SERVE_BATCH),
-            ("serve_ssm", "mamba2-780m", None, None, 1000, 1),
-            ("serve_hybrid", "hymba-1.5b", None, None, 1300, 1))
+             "card", SERVE_PROMPT, RANS_REQUESTS),
+            ("serve_ssm", "mamba2-780m", None, None, 1000, RANS_REQUESTS),
+            ("serve_hybrid", "hymba-1.5b", None, None, 1300, RANS_REQUESTS),
+            ("serve_vlm", "paligemma-3b", None, None, 512, RANS_REQUESTS),
+            ("serve_audio", "musicgen-medium", None, None, 256,
+             RANS_REQUESTS))
+# paligemma's Model-API requests: its n_prefix (256) patch embeds, then
+# FRONT_TEXT text tokens; musicgen's: SERVE_PROMPT frame embeds.  The
+# prefix-LM mask is held card against CPU on PREFIX_LAYERS layers in
+# float32, at cosine >= PREFIX_COS_MIN at every position.
+FRONT_TEXT = 256
+PREFIX_LAYERS = 2
+PREFIX_COS_MIN = 1 - 1e-5
 
 
 def serve_config(arch: str = SERVE_ARCH, n_layers=None):
@@ -1662,7 +1690,7 @@ def bf16_vs_f32(torch, lm, L, params, cfg, tokens, n_layers: int) -> dict:
 def serve_phase(torch, np, dev, launches: dict, label: str = "serve",
                 arch: str = SERVE_ARCH, n_layers=None, cut=None,
                 prompt: int = SERVE_PROMPT,
-                rans_batch: int = SERVE_BATCH) -> dict:
+                rans_batch: int = RANS_REQUESTS) -> dict:
     """A model and the serving engine at the arch's full width (bf16,
     seeded random weights made on the card; the depth cut to `n_layers`
     where `cut` says why): Llama-3.2-1B (dense GQA, 16 layers, the
@@ -1906,7 +1934,14 @@ def serve_phase(torch, np, dev, launches: dict, label: str = "serve",
     del cache, step_logits, pre_logits
     if cfg.n_experts:
         num.update(moe_drops(torch, lm, L, params, cfg, tokens, s_max, label))
-    if cfg.attn_kind == "gqa" and not (cfg.n_experts or cfg.ssm_state):
+    if cfg.frontend:
+        api = frontend_api(torch, dev, lm, model, params, label)
+        times["model_api"] = api.pop("times")
+        num.update(api)
+    if cfg.n_prefix:
+        num.update(prefix_check(torch, lm, params, cfg, label))
+    if cfg.attn_kind == "gqa" and not (cfg.n_experts or cfg.ssm_state
+                                       or cfg.frontend):
         times.update(sdpa_yardstick(torch, dev, cfg, L, num))
     out = dict(arch=cfg.name, layers=cfg.n_layers,
                layers_full=serve_config(arch).n_layers, depth_cut=cut,
@@ -1918,6 +1953,148 @@ def serve_phase(torch, np, dev, launches: dict, label: str = "serve",
                peak_device_bytes=torch.cuda.max_memory_allocated(),
                phase_s=time.perf_counter() - t_phase, card=card)
     log(f"{label} " + json.dumps(out))
+    return out
+
+
+def frontend_api(torch, dev, lm, model, params, label) -> dict:
+    """The frontend's own inputs through the Model API on the card:
+    SERVE_BATCH requests of seeded embeddings in the compute dtype
+    (paligemma: its n_prefix patch embeds and FRONT_TEXT text tokens;
+    musicgen: SERVE_PROMPT frames), one prefill and SERVE_NEW decode
+    steps (paligemma: greedy tokens through decode_step(token=), the
+    port's scaled token path; musicgen: seeded frames through
+    decode_step(embed=)), twice: the second run timed (host clock,
+    synchronised) and its tokens equal to the first's; every logit
+    finite.  Then decode_step after a prefill against the last position
+    of a prefill over the input plus that step (the token or the frame)
+    at cosine >= COS_MIN; for paligemma also the reference's unscaled
+    token lookup against the same prefill (its decode fault, measured,
+    not held)."""
+    cfg = model.cfg
+    B, NEW = SERVE_BATCH, SERVE_NEW
+    gen = torch.Generator(device=dev).manual_seed(3)
+    dt = getattr(torch, cfg.dtype)
+    patches = cfg.frontend == "patches"
+    n_emb = cfg.n_prefix if patches else SERVE_PROMPT
+    batch = {"embeds": torch.randn((B, n_emb, cfg.d_model), generator=gen,
+                                   device=dev, dtype=dt)}
+    if patches:
+        batch["tokens"] = torch.randint(0, cfg.vocab_size, (B, FRONT_TEXT),
+                                        generator=gen, device=dev)
+    T = n_emb + (FRONT_TEXT if patches else 0)
+    s_max = T + NEW + 1
+    frames = torch.randn((NEW + 1, B, 1, cfg.d_model), generator=gen,
+                         device=dev, dtype=dt)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache, pos = model.prefill(params, batch, s_max=s_max)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks, finite = [], bool(torch.isfinite(logits).all())
+        for i in range(NEW):
+            if patches:
+                tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+                toks.append(tok)
+                logits, cache = model.decode(params, cache, token=tok,
+                                             pos=pos)
+            else:
+                logits, cache = model.decode(params, cache, pos=pos,
+                                             embed=frames[i])
+            finite &= bool(torch.isfinite(logits).all())
+            pos = pos + 1
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        toks = torch.cat(toks, 1).cpu() if toks else logits.cpu()
+        return toks, finite, (t1 - t0) * 1e3, (t2 - t1) / NEW * 1e3
+
+    first, ok1, _, _ = run()
+    again, ok2, pre_ms, dec_ms = run()
+    if not (ok1 and ok2):
+        raise AssertionError(f"{label} model API: logits not finite")
+    if not torch.equal(first, again):
+        raise AssertionError(f"{label} model API: a second run differs")
+
+    logits, cache, pos = model.prefill(params, batch, s_max=s_max)
+    if patches:
+        nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        longer = dict(batch, tokens=torch.cat([batch["tokens"], nxt], 1))
+        step, _ = model.decode(params, cache, token=nxt, pos=pos)
+    else:
+        longer = {"embeds": torch.cat([batch["embeds"], frames[NEW]], 1)}
+        step, _ = model.decode(params, cache, pos=pos, embed=frames[NEW])
+    del cache
+    full, _, _ = model.prefill(params, longer, s_max=s_max)
+    cos = cosines(torch, step, full)
+    out = {"times": {"prefill_ms": pre_ms, "decode_ms_per_step": dec_ms,
+                     "inputs": {k: list(v.shape) for k, v in batch.items()}},
+           "cos_min_api_decode_vs_prefill": float(cos.min()),
+           "max_abs_diff_api_decode_vs_prefill": float(
+               (step - full).abs().max())}
+    if patches:
+        _, cache, pos = model.prefill(params, batch, s_max=s_max)
+        raw = params.embed.to(dt)[nxt]                 # unscaled
+        ref_step, _ = model.decode(params, cache, pos=pos, embed=raw)
+        out["cos_min_unscaled_token_decode_vs_prefill"] = float(
+            cosines(torch, ref_step, full).min())
+        del cache, ref_step
+    del step, full, logits
+    if out["cos_min_api_decode_vs_prefill"] < COS_MIN:
+        raise AssertionError(f"{label} model API: decode_step("
+                             f"{'token' if patches else 'embed'}=) against "
+                             "prefill, cosine "
+                             f"{out['cos_min_api_decode_vs_prefill']:.5f}")
+    log(f"{label} model API: {B} x {json.dumps(out['times']['inputs'])}, "
+        f"prefill {pre_ms:.1f} ms, decode {dec_ms:.2f} ms a step "
+        f"({NEW} steps through decode_step("
+        f"{'token' if patches else 'embed'}=)), every logit finite; decode "
+        f"against prefill cosine {out['cos_min_api_decode_vs_prefill']:.5f}"
+        + (f"; the reference's unscaled token lookup "
+           f"{out['cos_min_unscaled_token_decode_vs_prefill']:.5f}"
+           if patches else ""))
+    return out
+
+
+def prefix_check(torch, lm, params, cfg, label) -> dict:
+    """The prefix-LM mask on the card against the port's CPU path: the
+    first PREFIX_LAYERS layers (embedding and head kept) in float32, one
+    request of n_prefix seeded patch embeds and FRONT_TEXT tokens, the
+    logits at cosine >= PREFIX_COS_MIN at every position; and the same
+    layers under a causal mask (n_prefix 0) differ over the patches."""
+    cut = dataclasses.replace(cfg, n_layers=PREFIX_LAYERS, dtype="float32")
+
+    def sub(device):
+        p = lm.LM(cut, device="meta")
+        p.load_state_dict({
+            k: v.to(device, torch.float32)
+            for k, v in params.state_dict().items()
+            if not k.startswith("layers.")
+            or int(k.split(".")[1]) < PREFIX_LAYERS}, assign=True)
+        return p
+    gen = torch.Generator().manual_seed(4)
+    emb = torch.randn((1, cfg.n_prefix, cfg.d_model), generator=gen)
+    tok = torch.randint(0, cfg.vocab_size, (1, FRONT_TEXT), generator=gen)
+    dev = params.embed.device
+    card, _ = lm.forward(sub(dev), cut, tok.to(dev), emb.to(dev))
+    causal, _ = lm.forward(sub(dev), dataclasses.replace(cut, n_prefix=0),
+                           tok.to(dev), emb.to(dev))
+    cpu, _ = lm.forward(sub("cpu"), cut, tok, emb)
+    cos = cosines(torch, card.cpu(), cpu)
+    moved = float((card - causal)[:, :cfg.n_prefix].abs().max())
+    out = {"prefix_layers": PREFIX_LAYERS,
+           "cos_min_prefix_card_vs_cpu": float(cos.min()),
+           "max_abs_diff_prefix_card_vs_cpu": float(
+               (card.cpu() - cpu).abs().max()),
+           "max_abs_diff_prefix_vs_causal": moved}
+    del card, causal, cpu
+    if out["cos_min_prefix_card_vs_cpu"] < PREFIX_COS_MIN or not moved > 0:
+        raise AssertionError(f"{label} prefix mask: " + json.dumps(out))
+    log(f"{label} prefix mask, {PREFIX_LAYERS} layers f32, {cfg.n_prefix} "
+        f"patches + {FRONT_TEXT} tokens: card against CPU cosine "
+        f"{out['cos_min_prefix_card_vs_cpu']:.7f} (max abs diff "
+        f"{out['max_abs_diff_prefix_card_vs_cpu']:.3e}); against a causal "
+        f"mask the patch positions move by up to {moved:.3e}")
     return out
 
 
@@ -1946,11 +2123,17 @@ STEP_LOSS_RTOL = 1e-5              # one f32 smoke step, card against CPU
 # GB) run uncut (None: every layer).  Each runs TRAIN_FAMILY_STEPS steps at
 # B = TRAIN_BITS; `leaf`'s real gradient goes through quantize_dequantize
 # on the card and on the CPU (hymba's A_log: the leaf whose gradient the
-# reference's SSD makes NaN at chunk 256).
-TRAIN_FAMILIES = (("minicpm3-4b", 16, "layers/attn/wkv_a"),
-                  ("mixtral-8x7b", 1, "layers/mlp/we_down"),
-                  ("mamba2-780m", None, "layers/ssm/in_proj"),
-                  ("hymba-1.5b", None, "layers/ssm/A_log"))
+# reference's SSD makes NaN at chunk 256).  The last item is the sequence
+# length: the frontends train on Model.sample_batch batches, paligemma's
+# 256 patch embeds and 256 text tokens (2.51 G parameters, ~45 GB of
+# state; its (4, 512, 257,216) float32 logits alone are 2.1 GB) and
+# musicgen's 256 frames (1.82 G, ~33 GB, remat="block").
+TRAIN_FAMILIES = (("minicpm3-4b", 16, "layers/attn/wkv_a", 256),
+                  ("mixtral-8x7b", 1, "layers/mlp/we_down", 256),
+                  ("mamba2-780m", None, "layers/ssm/in_proj", 256),
+                  ("hymba-1.5b", None, "layers/ssm/A_log", 256),
+                  ("paligemma-3b", None, "embed", 512),
+                  ("musicgen-medium", None, "layers/mlp/w_up", 256))
 TRAIN_FAMILY_STEPS = 4
 
 
@@ -2229,10 +2412,10 @@ def train_phase(torch, np, dev, launches: dict) -> dict:
     out["peak_device_bytes"] = max(r["peak_device_bytes"]
                                    for r in out["runs"].values())
 
-    # -- (4) the MLA, MoE, SSM and hybrid families ------------------------
+    # -- (4) the MLA, MoE, SSM, hybrid and frontend families --------------
     out["families"] = {arch: family_train(torch, np, dev, launches, arch,
-                                          n_layers, leaf, card)
-                       for arch, n_layers, leaf in TRAIN_FAMILIES}
+                                          n_layers, leaf, card, seq)
+                       for arch, n_layers, leaf, seq in TRAIN_FAMILIES}
     out["phase_s"] = time.perf_counter() - t_phase
     out["card"] = card
     log("train " + json.dumps(out))
@@ -2240,9 +2423,11 @@ def train_phase(torch, np, dev, launches: dict) -> dict:
 
 
 def family_train(torch, np, dev, launches: dict, arch: str, n_layers,
-                 leaf: str, card: str) -> dict:
+                 leaf: str, card: str, seq: int = TRAIN_SEQ) -> dict:
     """`arch` at full width, `n_layers` decoder layers (None: all), bf16,
-    seeded on the card: TRAIN_FAMILY_STEPS steps of Trainer.fit with
+    seeded on the card, on TRAIN_BATCH x `seq` TokenPipeline tokens (a
+    frontend: Model.sample_batch batches of embeds and tokens, made on the
+    card from a seeded generator): TRAIN_FAMILY_STEPS steps of Trainer.fit with
     gradient compression at B = TRAIN_BITS (the histogram kernel once per
     leaf -- 3-D MLA projections, slot-wise expert stacks and the SSD's
     leaves among them -- per step, no other kernel), finite losses; on
@@ -2263,12 +2448,18 @@ def family_train(torch, np, dev, launches: dict, arch: str, n_layers,
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ + 1, TRAIN_BATCH, seed=0)
+    if cfg.frontend:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        batches = [model.sample_batch(gen, TRAIN_BATCH, seq)
+                   for _ in range(TRAIN_FAMILY_STEPS + 1)]
+    else:
+        pipe = TokenPipeline(cfg.vocab_size, seq + 1, TRAIN_BATCH, seed=0)
+        batches = [pipe.batch(i) for i in range(TRAIN_FAMILY_STEPS + 1)]
     tr = Trainer(model, train_config(TRAIN_BITS), device=dev)
     state = tr.init_state(0)
     n_leaves = len(list(leaves_with_keys(state.params)))
     (state, step, losses), got = counted(torch, ops.KERNELS, lambda: tr.fit(
-        state, pipe.from_step(0), n_steps=TRAIN_FAMILY_STEPS, log=quiet))
+        state, iter(batches[:-1]), n_steps=TRAIN_FAMILY_STEPS, log=quiet))
     check_counts(label, got, {"hist": TRAIN_FAMILY_STEPS * n_leaves})
     launches[label] = got
     if not all(np.isfinite(losses)):
@@ -2276,8 +2467,7 @@ def family_train(torch, np, dev, launches: dict, arch: str, n_layers,
     times = list(tr._times)
     step_ms = statistics.median(times[1:]) * 1e3
     _, met, g = loss_and_grads(model, state.params, {
-        k: torch.as_tensor(v, device=dev)
-        for k, v in pipe.batch(step).items()})
+        k: torch.as_tensor(v, device=dev) for k, v in batches[-1].items()})
     aux = float(met["aux"])
     if cfg.n_experts and not (np.isfinite(aux) and aux > 0):
         raise AssertionError(f"{label}: the MoE aux loss is {aux}")
@@ -2299,9 +2489,9 @@ def family_train(torch, np, dev, launches: dict, arch: str, n_layers,
     peak = torch.cuda.max_memory_allocated()
     out = dict(arch=arch, layers=cfg.n_layers, params=model.param_count(),
                leaves=n_leaves, losses=losses, aux=aux, step_ms=step_ms,
-               first_step_ms=times[0] * 1e3,
+               first_step_ms=times[0] * 1e3, seq=seq,
                step_ms_all=[round(t * 1e3, 2) for t in times],
-               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
+               tokens_per_s=TRAIN_BATCH * seq / step_ms * 1e3,
                peak_device_bytes=peak, launches=got,
                gradcomp_leaf=dict(key=leaf, shape=list(grad.shape),
                                   alpha=float(qinfo["alpha"]),
@@ -2310,7 +2500,7 @@ def family_train(torch, np, dev, launches: dict, arch: str, n_layers,
     torch.cuda.empty_cache()
     log(f"{label}: {cfg.name} full width, {cfg.n_layers} of "
         f"{serve_config(arch).n_layers} layers, {out['params']} parameters, "
-        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: losses "
+        f"{TRAIN_BATCH} x {seq} positions: losses "
         f"{[round(x, 4) for x in losses]}, aux {aux:.5f}, step "
         f"{step_ms:.1f} ms (median of steps 2-{TRAIN_FAMILY_STEPS}), "
         f"{out['tokens_per_s']:.0f} tokens/s, peak {peak / 1e9:.2f} GB, "
@@ -2318,6 +2508,113 @@ def family_train(torch, np, dev, launches: dict, arch: str, n_layers,
         f"gradient leaf finite; "
         f"quantize_dequantize of {leaf} {tuple(out['gradcomp_leaf']['shape'])}"
         f" card against CPU bit-exact, one histogram launch; {card}")
+    return out
+
+
+# The paper's comparison compressors (Sec. II, Figs. 9-12) on one delta
+# step of each series: ISABELA's window and knots, and ZFP's absolute
+# tolerance mean |x| * E as benchmarks/bench_compression.py sets it.
+ISABELA_WINDOW, ISABELA_KNOTS = 1024, 32
+BASELINE_STEP = 1
+ZFP_TOL_FACTOR = 8                 # tests/test_baselines.py's ZFP bound
+
+
+def host_ms(torch, fn) -> tuple:
+    """(fn's result, its host-clock ms, synchronised on both sides)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def baselines_phase(torch, np, dev, data: dict, results: dict,
+                    launches: dict) -> dict:
+    """ISABELA, ZFP and zlib (repro_torch.baselines) on step BASELINE_STEP
+    of each series at E, on the card and with device="cpu": payloads byte
+    for byte and decompressed arrays bit for bit equal; ISABELA within
+    the relative bound E, ZFP within ZFP_TOL_FACTOR x its tolerance;
+    ISABELA's compress launches the bit-pack kernel once (its
+    permutations) and no other kernel, ZFP and both decompressions none.
+    Each compression ratio beside NUMARCK's for the same step (phase 2's
+    zlib steps) and series; ms to compress and decompress on the card
+    (host clock, the second call)."""
+    from repro_torch.baselines import isabela, zfp_like, zlib_lossless
+    from repro_torch.kernels import ops
+
+    card = card_line()
+    out = {}
+    for name in MAIN_RUNS:
+        x = data[name][BASELINE_STEP]
+        tol = float(np.mean(np.abs(x))) * E
+        raw = sum(a.nbytes for a in data[name])
+        row = {"dtype": str(x.dtype), "shape": list(x.shape),
+               "cr": {"numarck": x.nbytes / results[name][BASELINE_STEP]
+                      .nbytes,
+                      "numarck_series": raw / sum(s.nbytes
+                                                  for s in results[name])},
+               "ms": {}}
+        coders = {
+            "isabela": (lambda d: isabela.compress(
+                x, E, ISABELA_WINDOW, ISABELA_KNOTS, device=d),
+                isabela.decompress, {"bitpack": 1}),
+            "zfp": (lambda d: zfp_like.compress(x, tol, device=d),
+                    zfp_like.decompress, {})}
+        for coder, (comp, decomp, want) in coders.items():
+            label = f"{coder} {name}"
+            blob, got = counted(torch, ops.KERNELS, lambda: comp(dev))
+            check_counts(f"{label} compress", got, want)
+            launches[label] = got
+            rec, got = counted(torch, ops.KERNELS,
+                               lambda: decomp(blob, device=dev))
+            check_counts(f"{label} decompress", got, {})
+            cpu = comp("cpu")
+            if blob.payload != cpu.payload:
+                raise AssertionError(f"{label}: the card's payload differs "
+                                     "from device=cpu's")
+            if not np.array_equal(rec.view(np.uint8), decomp(
+                    cpu, device="cpu").view(np.uint8)):
+                raise AssertionError(f"{label}: the card's decompressed "
+                                     "array differs from device=cpu's")
+            err = np.abs(rec.astype(np.float64) - x)
+            if coder == "isabela":
+                err = float((err / np.maximum(np.abs(x), 1e-30)).max())
+                bound = E * (1 + 1e-6)
+            else:
+                err, bound = float(err.max()), tol * ZFP_TOL_FACTOR
+            if not err <= bound:
+                raise AssertionError(f"{label}: error {err} over {bound}")
+            _, c_ms = host_ms(torch, lambda: comp(dev))
+            _, d_ms = host_ms(torch, lambda: decomp(blob, device=dev))
+            row["cr"][coder] = x.nbytes / blob.nbytes
+            row["ms"][coder] = {"compress": c_ms, "decompress": d_ms}
+            row[f"{coder}_error"] = err
+            row[f"{coder}_bound"] = bound
+            if coder == "isabela":
+                row["isabela_exceptions"] = blob.meta["n_exceptions"]
+        zb, z_ms = host_ms(torch, lambda: zlib_lossless.compress(x))
+        row["cr"]["zlib"] = x.nbytes / zb.nbytes
+        row["ms"]["zlib"] = {"compress": z_ms}
+        row["numarck_wins"] = all(row["cr"]["numarck"] > row["cr"][c]
+                                  for c in ("isabela", "zfp", "zlib"))
+        out[name] = row
+        log(f"baselines {name} step {BASELINE_STEP} {x.dtype} "
+            f"{tuple(x.shape)}, E = {E}: CR NUMARCK "
+            f"{row['cr']['numarck']:.3f} (series "
+            f"{row['cr']['numarck_series']:.3f}), ISABELA "
+            f"{row['cr']['isabela']:.3f}, ZFP {row['cr']['zfp']:.3f} (tol "
+            f"{tol:.4e}), zlib {row['cr']['zlib']:.3f}; NUMARCK "
+            f"{'beats' if row['numarck_wins'] else 'does not beat'} every "
+            f"baseline; ms on the card (compress / decompress): ISABELA "
+            f"{row['ms']['isabela']['compress']:.1f} / "
+            f"{row['ms']['isabela']['decompress']:.1f}, ZFP "
+            f"{row['ms']['zfp']['compress']:.1f} / "
+            f"{row['ms']['zfp']['decompress']:.1f}, zlib (host) {z_ms:.1f}; "
+            f"payloads byte-equal to device=cpu, ISABELA error "
+            f"{row['isabela_error']:.3e} <= {E}, ZFP error "
+            f"{row['zfp_error']:.3e} <= {ZFP_TOL_FACTOR} tol; launches "
+            f"{json.dumps(launches[f'isabela {name}'])}; {card}")
+    log("baselines " + json.dumps(out))
     return out
 
 
@@ -2331,6 +2628,12 @@ def run(torch, np) -> dict:
 
     dev = torch.device("cuda")
     K = ops.KERNELS
+    t_run = time.perf_counter()
+
+    def mark(phase: str) -> None:
+        """The run's elapsed host time as `phase` starts (PERF.md's time
+        accounting against the 1,200 s limit)."""
+        log(f"elapsed {time.perf_counter() - t_run:.1f} s: {phase}")
 
     # -- 1. build ----------------------------------------------------------
     log(f"build: {_build.build():.1f} s for {len(_build.SOURCES)} sources "
@@ -2339,6 +2642,7 @@ def run(torch, np) -> dict:
         _build.library(k.lib)
 
     # -- 2. the main path on the card --------------------------------------
+    mark("main")
     params = NumarckParams(error_bound=E)
     data = {name: list(generate_series(name, steps, seed=0, scale=SCALE))
             for name, steps in MAIN_RUNS.items()}
@@ -2372,6 +2676,7 @@ def run(torch, np) -> dict:
             "byte-identical to device=cpu")
 
     # -- 3. the rANS paths on the card --------------------------------------
+    mark("rans")
     rans_steps = {}
     min_bytes = rans.DEVICE_MIN_BYTES
     for label, (name, kw) in RANS_RUNS.items():
@@ -2429,6 +2734,7 @@ def run(torch, np) -> dict:
             f"versions {sorted(set(versions))}, byte-identical to device=cpu")
 
     # -- 4. archive and read on the card -----------------------------------
+    mark("archive")
     read_counts = archive_phase(torch, np, dev, {
         "cmip zlib": (data["cmip"], results["cmip"]),
         "cmip v1": (data["cmip"], rans_steps["cmip v1"]),
@@ -2437,12 +2743,15 @@ def run(torch, np) -> dict:
         launches[f"read {label}"] = got
 
     # -- 5. the equal-width, k-means and log-scale strategies -------------
+    mark("strategies")
     strategies_phase(torch, np, dev, data, launches)
 
     # -- 6. the sharded and multi-process drivers --------------------------
+    mark("sharded")
     sharded_phase(torch, np, dev, data, launches)
 
     # -- 7. one warm step, stage by stage ----------------------------------
+    mark("warm")
     first, step_in = data["cmip"][0], data["cmip"][1]
     warm = {}
     for codec in ("zlib", "rans"):
@@ -2487,21 +2796,30 @@ def run(torch, np) -> dict:
     route_times(torch, np, dev, data)
 
     # -- 8. telemetry on the card, the step trace ---------------------------
+    mark("telemetry")
     telemetry_phase(torch, np, dev, data, launches)
 
     # -- 9. the checkpoint manager ----------------------------------------
+    mark("checkpoint")
     checkpoint_phase(torch, np, dev, launches)
 
     # -- 10. the models and the serving engine -----------------------------
+    mark("serve")
     serve_phase(torch, np, dev, launches)
     for family in FAMILIES:
         serve_phase(torch, np, dev, launches, *family)
         torch.cuda.empty_cache()
 
     # -- 11. training: the trainer, gradient compression, restart ---------
+    mark("train")
     train_phase(torch, np, dev, launches)
 
-    # -- 12. each kernel against its plain version, timed ------------------
+    # -- 12. the paper's baselines on the card -----------------------------
+    mark("baselines")
+    baselines_phase(torch, np, dev, data, results, launches)
+
+    # -- 13. each kernel against its plain version, timed ------------------
+    mark("kernels")
     log_clocks("before the kernel phase")
     prev_big, curr_big = big_pair(np, N_BIG)
     pairs = {"cmip": (data["cmip"][0].reshape(-1), data["cmip"][1].reshape(-1)),
@@ -2685,6 +3003,7 @@ def run(torch, np) -> dict:
             table["hist"]["launch"] = plan
         del ids, valid_ids
     log_clocks("after the kernel phase")
+    mark("end")
     return table
 
 

@@ -42,6 +42,9 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     model = build(args.arch, smoke=args.smoke)
+    if model.cfg.frontend:
+        raise SystemExit(f"{args.arch}: frontend archs train via "
+                         "examples/train_restart.py sample batches")
     print(f"arch={model.cfg.name} params~{model.cfg.param_count():,} "
           f"device={dev}")
 

@@ -32,8 +32,18 @@ each layer in the backward (``torch.utils.checkpoint``).
 Every layer window is a Python int, so ``chunked_sdpa`` skips the fully
 masked blocks of hymba's sliding-window layers too, where the reference
 traces mixed windows and visits every block (the skipped blocks add
-exactly nothing).  The frontends wait for a later slice (ROADMAP Queue
-1, item 7e); ``shd.constrain`` is dropped (a no-op on one device).
+exactly nothing).  ``shd.constrain`` is dropped (a no-op on one
+device).
+
+The frontends are stubs, as in the reference: paligemma (``family ==
+"vlm"``) takes ``n_prefix`` precomputed patch embeddings ahead of its
+text tokens, attended under the prefix-LM mask and scaled with the
+token embeddings by ``d_model**0.5`` rounded to the compute dtype;
+musicgen (``frontend == "frames"``) takes frame embeddings in place of
+tokens.  One deliberate divergence: ``decode_step(token=)`` of a vlm
+scales the token's embedding as ``embed_inputs`` does, where the
+reference's ``decode_step`` leaves it unscaled (ROADMAP Queue 3); an
+``embed=`` input is used as given in both.
 """
 from __future__ import annotations
 
@@ -210,9 +220,23 @@ def layer_apply(p, x, *, cfg: ModelConfig, positions, window: int,
 # backbone forward (prefill logits)
 # ---------------------------------------------------------------------------
 
-def embed_inputs(params: LM, cfg: ModelConfig, tokens):
-    """Token embeddings (B, T, d) in the compute dtype."""
-    return params.embed.to(L.cdtype(cfg))[tokens]
+def embed_inputs(params: LM, cfg: ModelConfig, tokens=None,
+                 extra_embeds=None):
+    """Token embeddings (B, T, d) in the compute dtype, prefixed with the
+    frontend's embeddings `extra_embeds` (B, P, d) where given; a vlm's
+    are scaled by ``d_model**0.5`` rounded to the compute dtype (the
+    reference's ``jnp.asarray(d_model**0.5, dt)``: 45.25 in bfloat16 at
+    d = 2048)."""
+    dt = L.cdtype(cfg)
+    parts = []
+    if extra_embeds is not None:
+        parts.append(extra_embeds.to(dt))
+    if tokens is not None:
+        parts.append(params.embed.to(dt)[tokens])
+    x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+    if cfg.family == "vlm":
+        x = x * L._weak_scalar(cfg.d_model ** 0.5, dt)
+    return x
 
 
 def unembed(params: LM, cfg: ModelConfig, x):
@@ -221,13 +245,15 @@ def unembed(params: LM, cfg: ModelConfig, x):
     return torch.matmul(x, w).to(torch.float32)
 
 
-def forward(params: LM, cfg: ModelConfig, tokens, valid_len=None):
-    """-> (logits (B,T,V) f32, aux_loss).  Builds a graph only for
+def forward(params: LM, cfg: ModelConfig, tokens=None, extra_embeds=None,
+            valid_len=None):
+    """-> (logits (B,T,V) f32, aux_loss) over the frontend's embeddings
+    and the tokens (``embed_inputs``).  Builds a graph only for
     parameters that require grad (training's ``bind_params``).
     `valid_len` goes to every SSD layer (``ssm.ssd_apply``)."""
     remat = cfg.remat == "block" and torch.is_grad_enabled()
     with L.matmul_numerics():
-        x = embed_inputs(params, cfg, tokens)
+        x = embed_inputs(params, cfg, tokens, extra_embeds)
         T = x.shape[1]
         positions = torch.arange(T, dtype=torch.int32, device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -248,9 +274,12 @@ def forward(params: LM, cfg: ModelConfig, tokens, valid_len=None):
 
 def lm_loss(params: LM, cfg: ModelConfig, batch):
     """Cross-entropy over next-token labels; labels == -100 are masked.
-    batch: {"tokens", "labels"} (B, T) integer tensors on the params'
-    device.  -> (loss + 0.01 * aux / L, {"loss", "aux"})."""
-    logits, aux = forward(params, cfg, batch["tokens"])
+    batch: "labels" (B, T_lab) and "tokens" and/or "embeds" (B, P, d) on
+    the params' device; the labels cover the last T_lab positions (a
+    patch prefix carries none).  -> (loss + 0.01 * aux / L, {"loss",
+    "aux"})."""
+    logits, aux = forward(params, cfg, batch.get("tokens"),
+                          batch.get("embeds"))
     labels = batch["labels"].to(torch.int64)
     logits = logits[:, -labels.shape[1]:]
     mask = labels != -100
@@ -391,15 +420,20 @@ def layer_decode(p, x, cache, *, cfg: ModelConfig, pos, window: int,
 
 
 @torch.no_grad()
-def decode_step(params: LM, cfg: ModelConfig, cache, token, pos):
+def decode_step(params: LM, cfg: ModelConfig, cache, token=None, pos=None,
+                embed=None):
     """One new token for the whole batch.
 
-    token (B,1) int; pos a 0-d int32 tensor (absolute position); cache
-    as from `empty_cache`/`prefill`, written in place.
+    token (B,1) int, or `embed` (B,1,d) for the frontend archs (used as
+    given, unscaled, as in the reference); pos a 0-d int32 tensor
+    (absolute position); cache as from `empty_cache`/`prefill`, written
+    in place.  A vlm's token goes through ``embed_inputs`` and is scaled
+    as in the prefill (the reference's token path leaves it unscaled).
     Returns (logits (B,1,V) f32, cache).
     """
     with L.matmul_numerics():
-        x = embed_inputs(params, cfg, token)
+        x = (embed.to(L.cdtype(cfg)) if embed is not None
+             else embed_inputs(params, cfg, token))
         windows = layer_flags(cfg)
         for i, lp in enumerate(params.layers):
             x, _ = layer_decode(lp, x, _layer_cache(cache, i), cfg=cfg,
@@ -410,15 +444,16 @@ def decode_step(params: LM, cfg: ModelConfig, cache, token, pos):
 
 
 @torch.no_grad()
-def prefill(params: LM, cfg: ModelConfig, tokens,
+def prefill(params: LM, cfg: ModelConfig, tokens=None, extra_embeds=None,
             s_max: Optional[int] = None):
-    """Full forward + build the decode cache.
+    """Full forward over the frontend's embeddings and the tokens + build
+    the decode cache.
 
     Returns (logits_last (B,1,V), cache, next_pos 0-d int32).
     """
     with L.matmul_numerics():
         dt = L.cdtype(cfg)
-        x = embed_inputs(params, cfg, tokens)
+        x = embed_inputs(params, cfg, tokens, extra_embeds)
         B, T, _ = x.shape
         s_max = s_max or T
         dev = x.device

@@ -1,14 +1,13 @@
 """Public model API: --arch <id> -> Model(init/loss/forward/prefill/decode)
 (the port of the reference's ``models/model.py``: the dense and MoE
-families with GQA or MLA attention, the SSM family and the hybrid
-family).
+families with GQA or MLA attention, the SSM family, the hybrid family
+and the two frontend families, paligemma's patch and musicgen's frame
+embeddings).
 
 The model runs on the CUDA device unless the caller passes
 ``device="cpu"``; without a GPU a CUDA device raises.  Its parameters
 never require grad, so serving builds no graph; training binds views of
-the reference-layout tree that do (``lm.bind_params``).  The frontend
-families (patch and frame embeddings) are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+the reference-layout tree that do (``lm.bind_params``).
 ``input_specs``/``shape_params`` (the reference's dry-run stand-ins)
 come with the launch tooling (item 8).
 """
@@ -22,11 +21,10 @@ from repro_torch.core.chain import resolve_device
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 
-# What the port does not have yet, and where the ROADMAP queues it.
-_UNPORTED = (
-    (lambda c: bool(c.frontend), "the patch/frame frontends",
-     "ROADMAP Queue 1, item 7e (frontends)"),
-)
+# What the port does not have yet, and where the ROADMAP queues it:
+# (test of a config, what it needs, the item).  Every family of the
+# reference is ported.
+_UNPORTED = ()
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -34,8 +32,7 @@ def check_supported(cfg: ModelConfig) -> None:
         if test(cfg):
             raise NotImplementedError(
                 f"{cfg.name} needs {what}, not yet ported to PyTorch "
-                f"({item}); the port serves the dense, MoE, SSM and "
-                "hybrid families")
+                f"({item})")
 
 
 class Model:
@@ -64,13 +61,16 @@ class Model:
         return lm.lm_loss(params, self.cfg, batch)
 
     def forward(self, params, batch):
-        return lm.forward(params, self.cfg, batch["tokens"])
+        return lm.forward(params, self.cfg, tokens=batch.get("tokens"),
+                          extra_embeds=batch.get("embeds"))
 
     def prefill(self, params, batch, s_max: Optional[int] = None):
-        return lm.prefill(params, self.cfg, batch["tokens"], s_max=s_max)
+        return lm.prefill(params, self.cfg, tokens=batch.get("tokens"),
+                          extra_embeds=batch.get("embeds"), s_max=s_max)
 
-    def decode(self, params, cache, token, pos):
-        return lm.decode_step(params, self.cfg, cache, token, pos)
+    def decode(self, params, cache, token=None, pos=None, embed=None):
+        return lm.decode_step(params, self.cfg, cache, token=token, pos=pos,
+                              embed=embed)
 
     def empty_cache(self, batch, s_max, device=None):
         return lm.empty_cache(self.cfg, batch, s_max,
@@ -80,11 +80,27 @@ class Model:
     # ---- concrete sample batches (smoke tests / examples) -----------------
     def sample_batch(self, generator: torch.Generator, batch_size: int,
                      seq_len: int) -> Dict[str, torch.Tensor]:
-        """{tokens, labels} (B, T) int64 on the generator's device."""
+        """The reference's shapes on the generator's device: {tokens,
+        labels} (B, S) int64; for frames {embeds (B, S, d), labels (B,
+        S)}; for patches {embeds (B, n_prefix, d), tokens and labels (B,
+        S - n_prefix)}; embeds standard normal in ``cfg.dtype``."""
+        cfg = self.cfg
         kw = dict(generator=generator, device=generator.device)
-        V = self.cfg.vocab_size
-        return {"tokens": torch.randint(0, V, (batch_size, seq_len), **kw),
-                "labels": torch.randint(0, V, (batch_size, seq_len), **kw)}
+        B, V = batch_size, cfg.vocab_size
+        n_text = seq_len - (cfg.n_prefix if cfg.frontend == "patches"
+                            else 0)
+        dt = getattr(torch, cfg.dtype)
+        batch = {}
+        if cfg.frontend == "frames":
+            batch["embeds"] = torch.randn((B, seq_len, cfg.d_model),
+                                          dtype=dt, **kw)
+        elif cfg.frontend == "patches":
+            batch["embeds"] = torch.randn((B, cfg.n_prefix, cfg.d_model),
+                                          dtype=dt, **kw)
+        if cfg.frontend != "frames":
+            batch["tokens"] = torch.randint(0, V, (B, n_text), **kw)
+        batch["labels"] = torch.randint(0, V, (B, n_text), **kw)
+        return batch
 
 
 def build(arch_id: str, smoke: bool = False) -> Model:

@@ -66,7 +66,9 @@ def loss_and_grads(model: Model, params, batch):
     names, leaves = zip(*module.named_parameters())
     with L.matmul_numerics():
         loss, metrics = model.loss(module, batch)
-        grads = torch.autograd.grad(loss, leaves)
+        # an unused leaf (musicgen's token table under frame embeds)
+        # gets zeros, as jax.grad gives it
+        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
         lm.stack_layers(zip(names, grads))
 

@@ -1009,3 +1009,130 @@ def test_cuda_ssm_hybrid_models_match_cpu(cuda, arch):
         w = w.float().numpy()
         np.testing.assert_allclose(g.cpu().float().numpy(), w, rtol=1e-3,
                                    atol=1e-3 * np.abs(w).max(), err_msg=k)
+
+
+# -- the frontend families and the baselines -----------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["paligemma-3b", "musicgen-medium"])
+def test_cuda_frontend_models_match_cpu(cuda, arch):
+    """The frontends on the card against the CPU within 1e-3: paligemma's
+    prefix-LM mask (8 patch embeds ahead of the text; a token-only prompt
+    shorter than the prefix too) in forward and prefill, then decode
+    steps through decode_step(token=) (the scaled token path) or, for
+    musicgen, decode_step(embed=) of seeded frames; then one train
+    step's loss on a sample batch."""
+    from repro_torch.models import lm
+    from repro_torch.train.trainer import Trainer, loss_and_grads
+
+    model, cpu, card = _family_models(cuda, arch)
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    frames = cfg.frontend == "frames"
+    emb = torch.from_numpy(rng.standard_normal(
+        (2, 20 if frames else cfg.n_prefix, cfg.d_model)).astype(np.float32))
+    toks = None if frames else torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (2, 12)))
+
+    def on(t, dev):
+        return None if t is None else t.to(dev)
+
+    def close(g, w):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-3,
+                                   atol=1e-3)
+
+    close(lm.forward(card, cfg, on(toks, cuda), on(emb, cuda))[0],
+          lm.forward(cpu, cfg, toks, emb)[0])
+    if not frames:
+        short = toks[:, :5]             # shorter than n_prefix: all prefix
+        close(lm.forward(card, cfg, short.to(cuda))[0],
+              lm.forward(cpu, cfg, short)[0])
+    got = lm.prefill(card, cfg, on(toks, cuda), on(emb, cuda), s_max=40)
+    want = lm.prefill(cpu, cfg, toks, emb, s_max=40)
+    close(got[0], want[0])
+    gc, wc, pos = got[1], want[1], want[2]
+    for i in range(6):
+        if frames:
+            e = torch.from_numpy(rng.standard_normal(
+                (2, 1, cfg.d_model)).astype(np.float32))
+            g_log, gc = lm.decode_step(card, cfg, gc, pos=pos.to(cuda),
+                                       embed=e.to(cuda))
+            w_log, wc = lm.decode_step(cpu, cfg, wc, pos=pos, embed=e)
+        else:
+            t = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1)))
+            g_log, gc = lm.decode_step(card, cfg, gc, token=t.to(cuda),
+                                       pos=pos.to(cuda))
+            w_log, wc = lm.decode_step(cpu, cfg, wc, token=t, pos=pos)
+        close(g_log, w_log)
+        pos = pos + 1
+
+    state = Trainer(model, device="cpu").init_state(0)
+    card_state = interop.train_state_from_reference(
+        interop.train_state_to_reference(state), cfg, device=cuda)
+    batch = model.sample_batch(torch.Generator().manual_seed(0), 2, 24)
+    wl, _, _ = loss_and_grads(model, state.params, batch)
+    gl, _, _ = loss_and_grads(model, card_state.params,
+                              {k: v.to(cuda) for k, v in batch.items()})
+    np.testing.assert_allclose(float(gl), float(wl), rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3072, 5000])
+def test_cuda_isabela_packs_permutations_with_kernel_3(cuda, n):
+    """ISABELA's permutation packing on the card: the bit-pack kernel
+    once over the whole 32-element groups (B = 10), the plain version
+    over the tail, the bytes pack_indices_np's; then the whole compress
+    (one kernel launch) and decompress against device="cpu" byte for
+    byte, and ZFP's too (no kernel)."""
+    from repro_torch.baselines import isabela, zfp_like
+
+    idx = np.random.default_rng(n).integers(0, 1024, n).astype(np.int32)
+    bitpack.KERNEL.launches = 0
+    got = isabela._pack_perm(torch.from_numpy(idx).to(cuda), 10)
+    assert bitpack.KERNEL.launches == 1
+    assert got == packing.pack_indices_np(idx, 10).tobytes()
+
+    x = np.random.default_rng(1).standard_normal(n).astype(np.float32)
+    x[::13] = 0.0
+    x[::97] = np.nan
+    bitpack.KERNEL.launches = 0
+    blob = isabela.compress(x, 1e-3, 1024, 32, device=cuda)
+    assert bitpack.KERNEL.launches == 1
+    want = isabela.compress(x, 1e-3, 1024, 32, device="cpu")
+    assert blob.payload == want.payload
+    np.testing.assert_array_equal(
+        isabela.decompress(blob, device=cuda).view(np.uint8),
+        isabela.decompress(want, device="cpu").view(np.uint8))
+    tol = float(np.nanmean(np.abs(x))) * 1e-3
+    zb = zfp_like.compress(x, tol, device=cuda)
+    zw = zfp_like.compress(x, tol, device="cpu")
+    assert zb.payload == zw.payload
+    np.testing.assert_array_equal(
+        zfp_like.decompress(zb, device=cuda).view(np.uint8),
+        zfp_like.decompress(zw, device="cpu").view(np.uint8))
+
+
+@pytest.mark.cuda
+def test_cuda_zfp_exponents_match_the_cpu(cuda):
+    """ZFP's integer exponents (ceil and floor of log2 as numpy rounds
+    them) on the card equal the CPU's next to every power of two, where
+    a device log2 could differ by an ulp."""
+    import math
+
+    from repro_torch.baselines import zfp_like
+
+    xs = []
+    for k in range(-1074, 1024):
+        v = math.ldexp(1.0, k)
+        lo, hi = v, v
+        for _ in range(4):
+            lo, hi = math.nextafter(lo, 0.0), math.nextafter(hi, math.inf)
+            xs += [lo, hi]
+        xs.append(v)
+    xs = torch.tensor([x for x in xs if 0 < x < math.inf],
+                      dtype=torch.float64)
+    assert torch.equal(zfp_like._ceil_log2(xs.to(cuda)).cpu(),
+                       zfp_like._ceil_log2(xs))
+    ge1 = xs[xs >= 1]
+    assert torch.equal(zfp_like._floor_log2(ge1.to(cuda)).cpu(),
+                       zfp_like._floor_log2(ge1))

@@ -25,6 +25,7 @@ torch = pytest.importorskip("torch")
 import repro_torch  # noqa: E402
 from repro.core import compress as jcompress  # noqa: E402
 from repro.core.container import NCKReader as JReader  # noqa: E402
+from repro.core.container import NCKWriter as JWriter  # noqa: E402
 from repro.core.types import NumarckParams as JParams  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.core import container  # noqa: E402
@@ -650,3 +651,48 @@ def test_two_ranks_zero_minimum_keeps_the_reference_sign(case, zero_files,
     r = NCKReader(path)
     steps = [r.read_step(n) for n in r.step_names()]
     assert _nck_bytes(steps, tmp_path / "port.nck") == want
+
+
+_ORIG_WORKER = textwrap.dedent("""
+    import os
+    import numpy as np
+    from repro_torch.launch import distributed as ld
+    ld.initialize()
+    from repro_torch.core.types import NumarckParams
+    from repro_torch.distributed.pipeline import MultiProcessCompressor
+    mp = MultiProcessCompressor(["cpu"], NumarckParams(
+        reference="original", block_bytes=1024))
+    mp.save_series(os.environ["OUT_PATH"],
+                   list(np.load(os.environ["SERIES"])),
+                   manifest_timeout=10.0)
+    mp.close()
+    ld.shutdown()
+""")
+
+
+def test_two_ranks_original_reference_matches_jax(tmp_path):
+    """reference="original" through two gloo ranks (the multi-process
+    driver's chain.replace branch): the steps merged through the NCKM
+    manifest write the NCK bytes of the JAX package's single-device steps
+    for the same series and params, and decompress to its arrays."""
+    arrays = _series()
+    np.save(tmp_path / "series.npy", np.stack(arrays))
+    path = str(tmp_path / "series.nck")
+    env = dict(os.environ, OUT_PATH=path, PYTHONPATH=SRC,
+               SERIES=str(tmp_path / "series.npy"))
+    env.pop("REPRO_FAULTS", None)
+    ld.check_spawned(ld.spawn_emulated(2, ["-c", _ORIG_WORKER],
+                                       base_env=env, timeout=240))
+    r = NCKReader(path)
+    got = [r.read_step(n) for n in r.step_names()]
+    want = jcompress.compress_series(
+        arrays, JParams(reference="original", block_bytes=1024))
+    jw = JWriter()
+    for i, s in enumerate(want):
+        jw.add_step(f"step{i:04d}", s)
+    jw.write(str(tmp_path / "jax.nck"))
+    assert (_nck_bytes(got, tmp_path / "port.nck")
+            == (tmp_path / "jax.nck").read_bytes())
+    for a, b in zip(repro_torch.decompress_series(got, device="cpu"),
+                    jcompress.decompress_series(want)):
+        np.testing.assert_array_equal(a, b)

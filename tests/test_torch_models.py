@@ -362,21 +362,15 @@ def test_init_scales_and_dtypes():
 
 @pytest.mark.parametrize("arch", list_archs())
 def test_param_counts_match_the_reference(arch):
-    """Every config's param_count (and active count) is the reference's;
-    for the dense, MoE (GQA or MLA), SSM and hybrid archs the port's
-    Model counts the reference's leaves, and only the frontends raise
-    NotImplementedError naming their ROADMAP item (7e)."""
+    """Every config's param_count (and active count) is the reference's,
+    and for every arch (dense, MoE with GQA or MLA, SSM, hybrid and the
+    frontends) the port's Model counts the reference's leaves."""
     cfg, jcfg = get_config(arch), jget_config(arch)
     assert cfg == type(cfg)(**{f: getattr(jcfg, f)
                                for f in cfg.__dataclass_fields__})
     assert cfg.param_count() == jcfg.param_count()
     assert cfg.active_param_count() == jcfg.active_param_count()
-    try:
-        model = build(arch)
-    except NotImplementedError as e:
-        assert "ROADMAP Queue 1, item 7e" in str(e)
-        assert jcfg.frontend
-        return
+    model = build(arch)
     # The reference's leaves of its abstract parameter tree, summed in
     # Python ints (its Model.param_count takes jnp.prod in int32, which
     # wraps for qwen1.5-110b's and the MoE archs' stacked layer leaves).

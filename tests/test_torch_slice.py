@@ -342,8 +342,6 @@ def test_no_jax_or_repro_import_in_the_port():
 # queues each.
 UNPORTED_MODULES = {
     "repro.analysis": "item 9 (lint for the port)",
-    "repro.baselines": "item 8a (NumPy-only; the benches import them)",
-    "repro.core.dp_oracle": "item 8a (NumPy-only oracle)",
     "repro.checkpoint.elastic": "item 8b",
     "repro.distributed.pipeline_parallel": "item 8b",
     "repro.distributed.sharding": "item 8b",
