@@ -48,7 +48,25 @@ Phases, each fatal on failure (exit code 1, no result line):
               Llama-3.2-1B layer with its Adam moments (device chain;
               kernels 1-4 once per lossy tensor per delta save), step
               files equal to a host chain's, restore onto a "meta"
-              template, and a walk-back past a flipped byte.
+              template; then a byte of the newest file flipped.
+      elastic  the walk-back past that byte, through restore_elastic onto
+              the (1, 1) ("data", "model") CUDA mesh of this one process
+              with the full Llama-3.2-1B config's sharding rules (the
+              tree under Model.shape_params() keys, so that some leaves
+              are Shard): one step back, one report entry, no kernel
+              (zlib decodes on the host); every tensor leaf a DTensor on
+              the card with named_shardings' placements, its
+              full_tensor() bit-equal to restore_latest's tree, lossless
+              leaves exact and lossy ones within the bound.  One
+              process: NCCL refuses two ranks on one card, and meshes of
+              several gloo ranks are held on the CPU.
+      pipeline  the GPipe schedule (pipeline_apply) over 2 gloo ranks
+              spawned on the card, activations staged through the host:
+              Llama-3.2-1B's 16 decoder layers at full width in float32,
+              8 a stage, 8 microbatches of (1, 256, 2048) seeded hidden
+              states; outputs within 1e-4 and each stage's gradient
+              within 1e-3 (relative, Frobenius) of the 16 layers run in
+              sequence on rank 0; forward and backward ms of both.
   10. serve   the dense GQA model and the serving engine at Llama-3.2-1B's
               full width (bf16, seeded random weights made on the card): 4
               requests of 256 prompt tokens, 32 new and 32 resumed.  Greedy
@@ -1038,14 +1056,16 @@ REF_SPANS = {
              "decode.dequant", "decode.patch"},
 }
 REF_SPANS["rans"] = REF_SPANS["zlib"] | {"decode.fetch"}
-# Llama-3.2-1B (src/repro/configs/llama3_2_1b.py): one decoder layer's
-# weights, float32, at full width.
-LLAMA_LAYER = {"attn": {"q": (2048, 2048), "k": (2048, 512),
-                        "v": (2048, 512), "o": (2048, 2048)},
-               "mlp": {"gate": (2048, 8192), "up": (2048, 8192),
-                       "down": (8192, 2048)},
-               "attn_norm": {"scale": (2048,)},
-               "mlp_norm": {"scale": (2048,)}}
+# Llama-3.2-1B (src/repro/configs/llama3_2_1b.py): a decoder layer's
+# weights, float32, at full width, under the keys and shapes of
+# Model.shape_params() (each leaf gets a leading layer dim), so that the
+# parameter rules shard them.
+LLAMA_LAYER = {"attn": {"wq": (2048, 32, 64), "wk": (2048, 8, 64),
+                        "wv": (2048, 8, 64), "wo": (32, 64, 2048)},
+               "mlp": {"w_gate": (2048, 8192), "w_up": (2048, 8192),
+                       "w_down": (8192, 2048)},
+               "ln_attn": {"scale": (2048,)},
+               "ln_mlp": {"scale": (2048,)}}
 CKPT_LAYERS = 1                    # of the model's 16 decoder layers (the
                                    # run's 1,200 s: PERF.md section 4)
 CKPT_SAVES = 5
@@ -1273,9 +1293,11 @@ def telemetry_phase(torch, np, dev, data: dict, launches: dict) -> None:
 
 def llama_tree(torch, dev, gen) -> dict:
     """Parameters and Adam moments of CKPT_LAYERS Llama-3.2-1B decoder
-    layers at full width (float32, on the card), and an int step."""
-    def layer(make):
-        return {k: {n: make(shape) for n, shape in sub.items()}
+    layers at full width (float32, on the card, stacked on a leading
+    layer dim), and an int step."""
+    def layers(make):
+        return {k: {n: make((CKPT_LAYERS,) + shape)
+                    for n, shape in sub.items()}
                 for k, sub in LLAMA_LAYER.items()}
 
     def normal(scale):
@@ -1286,12 +1308,9 @@ def llama_tree(torch, dev, gen) -> dict:
         g = torch.randn(shape, generator=gen, device=dev) * 1e-3
         return g * g + 1e-12
 
-    return {"params": {"layers": [layer(normal(0.02))
-                                  for _ in range(CKPT_LAYERS)]},
-            "opt": {"m": {"layers": [layer(normal(1e-3))
-                                     for _ in range(CKPT_LAYERS)]},
-                    "v": {"layers": [layer(second_moment)
-                                     for _ in range(CKPT_LAYERS)]},
+    return {"params": {"layers": layers(normal(0.02))},
+            "opt": {"m": {"layers": layers(normal(1e-3))},
+                    "v": {"layers": layers(second_moment)},
                     "step": 0}}
 
 
@@ -1318,15 +1337,16 @@ def leaves_of(tree) -> dict:
     return dict(tree_items(tree))
 
 
-def checkpoint_phase(torch, np, dev, launches: dict) -> None:
+def checkpoint_phase(torch, np, dev, launches: dict, tmp: str) -> dict:
     """CheckpointManager on the card: five async saves (anchor_every=4,
     device chain) of the parameters and Adam moments of CKPT_LAYERS
     full-width Llama-3.2-1B layers, each float leaf drifting by 1 % between saves.
     Kernels 1-4 once per lossy tensor per delta save; step files and
     manifest identical to the same saves with a host chain; restore_latest
-    onto a "meta" template exact; a byte flipped in the newest file walks
-    the restore back one step (one report entry), lossless leaves exact
-    and lossy ones within the bound."""
+    onto a "meta" template exact; then a byte of the newest file flipped.
+    The files go under `tmp`; returns their directory, the parameters,
+    the tree the walk-back must give (save 3's), the lossy keys and the
+    newest restore's ms, for the elastic phase's walk-back."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core.types import NumarckParams
     from repro_torch.kernels import ops
@@ -1357,137 +1377,421 @@ def checkpoint_phase(torch, np, dev, launches: dict) -> None:
     torch.cuda.synchronize()
     params = NumarckParams(error_bound=E)
     res = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        for chain in ("device", "host"):
-            d = os.path.join(tmp, chain)
-            mgr = CheckpointManager(d, params, anchor_every=4,
-                                    keep=CKPT_SAVES, async_save=True,
-                                    chain=chain, device=dev)
-            call_ms = []
+    for chain in ("device", "host"):
+        d = os.path.join(tmp, chain)
+        mgr = CheckpointManager(d, params, anchor_every=4,
+                                keep=CKPT_SAVES, async_save=True,
+                                chain=chain, device=dev)
+        call_ms = []
 
-            def saves():
-                futs = []
-                for i, st in enumerate(states):
-                    t0 = time.perf_counter()
-                    futs.append(mgr.save(i, st))
-                    call_ms.append((time.perf_counter() - t0) * 1e3)
-                mgr.wait()
-                return [f.result() for f in futs]
+        def saves():
+            futs = []
+            for i, st in enumerate(states):
+                t0 = time.perf_counter()
+                futs.append(mgr.save(i, st))
+                call_ms.append((time.perf_counter() - t0) * 1e3)
+            mgr.wait()
+            return [f.result() for f in futs]
 
-            reg = telemetry.start()
-            t0 = time.perf_counter()
-            try:
-                stats, got = counted(torch, ops.KERNELS, saves)
-            finally:
-                telemetry.stop()
-            wall = time.perf_counter() - t0
-            mgr.close()
-            res[chain] = dict(dir=d, stats=stats, wall=wall, call_ms=call_ms,
-                              reg=reg)
-            # Kernels 1-3 per lossy tensor per delta save; the device
-            # chain advances through kernel 4 too.
-            deltas = sum(not s["anchor"] for s in stats)
-            want = {k: deltas * len(lossy) for k in
-                    ("change_ratio", "hist", "bitpack", "dequant")}
-            if chain == "host":
-                want["dequant"] = 0
-            check_counts(f"checkpoint {chain}", got, want)
-            launches[f"checkpoint {chain}"] = got
-        files = {c: {f: open(os.path.join(r["dir"], f), "rb").read()
-                     for f in sorted(os.listdir(r["dir"]))}
-                 for c, r in res.items()}
-        if files["device"] != files["host"]:
-            raise AssertionError("checkpoint: step files differ between the "
-                                 "device and the host chain")
-        r = res["device"]
-        spans = report.rollup(r["reg"])["spans"]
-        saves_ms = [s.duration * 1e3 for s in r["reg"].spans
-                    if s.name == "ckpt.save"]
-        orig = sum(s["orig_bytes"] for s in r["stats"])
-        comp = sum(s["comp_bytes"] for s in r["stats"])
-        log(f"checkpoint: {CKPT_LAYERS} Llama-3.2-1B layers + Adam m, v "
-            f"({len(leaves)} leaves, {n_vals} values, "
-            f"{orig / CKPT_SAVES / 1e9:.3f} GB a save, {len(lossy)} lossy), "
-            f"{CKPT_SAVES} async saves, anchor_every=4, chain device: launches"
-            f" {json.dumps(launches['checkpoint device'])}; ms per save "
-            f"(ckpt.save, worker) "
-            + json.dumps([round(x, 1) for x in saves_ms])
-            + ", save() call on the caller "
-            + json.dumps([round(x, 1) for x in r["call_ms"]])
-            + f", all {r['wall'] * 1e3:.1f} (host chain "
-            f"{res['host']['wall'] * 1e3:.1f}; both under telemetry); CR "
-            "per save "
-            + json.dumps([round(s["ratio"], 3) for s in r["stats"]])
-            + f", all {orig / comp:.3f}; ckpt.encode "
-            f"{spans['ckpt.encode']['total_s'] * 1e3:.1f} ms, ckpt.write "
-            f"{spans['ckpt.write']['total_s'] * 1e3:.1f} ms in all; step "
-            f"files identical to the host chain's; {card}")
-
-        # Restore the newest step (an anchor) onto a "meta" template.
-        mgr = CheckpointManager(r["dir"], params, device=dev)
-        template = tree_map(lambda x: torch.empty(x.shape, device="meta")
-                            if torch.is_tensor(x) else x, states[-1])
-        torch.cuda.synchronize()
+        reg = telemetry.start()
         t0 = time.perf_counter()
-        step, tree = mgr.restore_latest(template=template)
-        torch.cuda.synchronize()
-        t_latest = time.perf_counter() - t0
-        if step != CKPT_SAVES - 1 or mgr.last_restore_report:
-            raise AssertionError(f"checkpoint restore: step {step}, report "
-                                 f"{mgr.last_restore_report}")
-        want_leaves = leaves_of(states[-1])
-        for k, v in tree_items(tree):
-            want = want_leaves[k]
-            if torch.is_tensor(want):
-                if v.device != want.device or not torch.equal(v, want):
-                    raise AssertionError(f"checkpoint restore: leaf {k} "
-                                         "differs from the anchor's")
-            elif v != want:
-                raise AssertionError(f"checkpoint restore: {k} = {v}")
-        del tree
+        try:
+            stats, got = counted(torch, ops.KERNELS, saves)
+        finally:
+            telemetry.stop()
+        wall = time.perf_counter() - t0
+        mgr.close()
+        res[chain] = dict(dir=d, stats=stats, wall=wall, call_ms=call_ms,
+                          reg=reg)
+        # Kernels 1-3 per lossy tensor per delta save; the device
+        # chain advances through kernel 4 too.
+        deltas = sum(not s["anchor"] for s in stats)
+        want = {k: deltas * len(lossy) for k in
+                ("change_ratio", "hist", "bitpack", "dequant")}
+        if chain == "host":
+            want["dequant"] = 0
+        check_counts(f"checkpoint {chain}", got, want)
+        launches[f"checkpoint {chain}"] = got
+    files = {c: {f: open(os.path.join(r["dir"], f), "rb").read()
+                 for f in sorted(os.listdir(r["dir"]))}
+             for c, r in res.items()}
+    if files["device"] != files["host"]:
+        raise AssertionError("checkpoint: step files differ between the "
+                             "device and the host chain")
+    r = res["device"]
+    spans = report.rollup(r["reg"])["spans"]
+    saves_ms = [s.duration * 1e3 for s in r["reg"].spans
+                if s.name == "ckpt.save"]
+    orig = sum(s["orig_bytes"] for s in r["stats"])
+    comp = sum(s["comp_bytes"] for s in r["stats"])
+    log(f"checkpoint: {CKPT_LAYERS} Llama-3.2-1B layers + Adam m, v "
+        f"({len(leaves)} leaves, {n_vals} values, "
+        f"{orig / CKPT_SAVES / 1e9:.3f} GB a save, {len(lossy)} lossy), "
+        f"{CKPT_SAVES} async saves, anchor_every=4, chain device: launches"
+        f" {json.dumps(launches['checkpoint device'])}; ms per save "
+        f"(ckpt.save, worker) "
+        + json.dumps([round(x, 1) for x in saves_ms])
+        + ", save() call on the caller "
+        + json.dumps([round(x, 1) for x in r["call_ms"]])
+        + f", all {r['wall'] * 1e3:.1f} (host chain "
+        f"{res['host']['wall'] * 1e3:.1f}; both under telemetry); CR "
+        "per save "
+        + json.dumps([round(s["ratio"], 3) for s in r["stats"]])
+        + f", all {orig / comp:.3f}; ckpt.encode "
+        f"{spans['ckpt.encode']['total_s'] * 1e3:.1f} ms, ckpt.write "
+        f"{spans['ckpt.write']['total_s'] * 1e3:.1f} ms in all; step "
+        f"files identical to the host chain's; {card}")
 
-        # A flipped byte in the newest file: walk back to the delta step.
-        newest = os.path.join(r["dir"], f"step_{CKPT_SAVES - 1:08d}.nck")
-        raw = bytearray(open(newest, "rb").read())
-        raw[len(raw) // 2] ^= 0x40
-        open(newest, "wb").write(bytes(raw))
-        mgr = CheckpointManager(r["dir"], params, device=dev)
+    # Restore the newest step (an anchor) onto a "meta" template.
+    mgr = CheckpointManager(r["dir"], params, device=dev)
+    template = tree_map(lambda x: torch.empty(x.shape, device="meta")
+                        if torch.is_tensor(x) else x, states[-1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step, tree = mgr.restore_latest(template=template)
+    torch.cuda.synchronize()
+    t_latest = time.perf_counter() - t0
+    if step != CKPT_SAVES - 1 or mgr.last_restore_report:
+        raise AssertionError(f"checkpoint restore: step {step}, report "
+                             f"{mgr.last_restore_report}")
+    want_leaves = leaves_of(states[-1])
+    for k, v in tree_items(tree):
+        want = want_leaves[k]
+        if torch.is_tensor(want):
+            if v.device != want.device or not torch.equal(v, want):
+                raise AssertionError(f"checkpoint restore: leaf {k} "
+                                     "differs from the anchor's")
+        elif v != want:
+            raise AssertionError(f"checkpoint restore: {k} = {v}")
+    del tree
+
+    # A flipped byte in the newest file: the elastic phase's restore
+    # walks back to the delta step.
+    newest = os.path.join(r["dir"], f"step_{CKPT_SAVES - 1:08d}.nck")
+    raw = bytearray(open(newest, "rb").read())
+    raw[len(raw) // 2] ^= 0x40
+    open(newest, "wb").write(bytes(raw))
+    log(f"checkpoint restore ms: newest (anchor, onto a meta template) "
+        f"{t_latest * 1e3:.1f}, exact; a byte of it flipped for the "
+        f"walk-back; {card}")
+    return dict(dir=r["dir"], params=params, want=states[-2], lossy=lossy,
+                latest_ms=t_latest * 1e3)
+
+
+ELASTIC_ARCH = "llama3.2-1b"        # the parameter rules' config
+
+
+def elastic_phase(torch, np, dev, ck: dict, launches: dict) -> None:
+    """The checkpoint phase's walk-back, through restore_elastic onto the
+    (1, 1) ("data", "model") CUDA mesh of this one process with the full
+    Llama-3.2-1B config's rules: the newest file's flipped byte walks the
+    restore back one step (one report entry); no kernel (zlib decodes on
+    the host); every tensor leaf a DTensor on the card with
+    named_shardings' placements (some of them Shard), its full_tensor()
+    bit-equal to the tree restore_elastic's own restore_latest gave,
+    lossless leaves exact and lossy ones within the bound; the scalar
+    leaf as it was.  One process: NCCL refuses two ranks on one card, and
+    gloo takes CUDA tensors only for broadcast and all_reduce, so meshes
+    of several ranks are held by the CPU tests over gloo."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.elastic import restore_elastic
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import leaves_with_keys
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import distributed as ld
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.obs import report, telemetry
+
+    cfg = get_config(ELASTIC_ARCH)
+    want_leaves, lossy = leaves_of(ck["want"]), ck["lossy"]
+    t0 = time.perf_counter()
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    mesh_ms = (time.perf_counter() - t0) * 1e3
+    try:
+        log("elastic: declared configuration: one process, the (1, 1) "
+            "(data, model) cuda mesh over a one-rank gloo group")
+        mgr = CheckpointManager(ck["dir"], ck["params"], device=dev)
+        template = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                                  device="meta")
+                            if torch.is_tensor(x) else x, ck["want"])
+        inner = {}
+        restore = mgr.restore_latest
+
+        def timed(**kw):
+            # restore_elastic's own restore_latest: its ms and its tree
+            t1 = time.perf_counter()
+            out = restore(**kw)
+            torch.cuda.synchronize()
+            inner.update(ms=(time.perf_counter() - t1) * 1e3, tree=out[1])
+            return out
+        mgr.restore_latest = timed
         with telemetry.capture() as reg:
             t0 = time.perf_counter()
-            step, tree = mgr.restore_latest(template=states[-2])
-            torch.cuda.synchronize()
-            t_back = time.perf_counter() - t0
+            (step, tree), got = counted(torch, ops.KERNELS, lambda:
+                                        restore_elastic(mgr, template, cfg,
+                                                        mesh))
+            ms = (time.perf_counter() - t0) * 1e3
         read_ms = {k: round(v["total_s"] * 1e3, 1) for k, v in
                    sorted(report.rollup(reg)["spans"].items())}
         if step != CKPT_SAVES - 2 or len(mgr.last_restore_report) != 1:
-            raise AssertionError(f"checkpoint walk-back: step {step}, report "
+            raise AssertionError(f"elastic walk-back: step {step}, report "
                                  f"{mgr.last_restore_report}")
-        want_leaves = leaves_of(states[-2])
-        worst, above = 0.0, 0
+        check_counts("elastic", got, {})
+        launches["elastic"] = got
+        plain = leaves_of(inner.pop("tree"))
+        ns = dict(leaves_with_keys(shd.named_shardings(ck["want"], cfg,
+                                                       mesh)))
+        kinds, sharded, worst, above = {}, 0, 0.0, 0
         for k, v in tree_items(tree):
             want = want_leaves[k]
+            if not torch.is_tensor(want):
+                if v != want or type(v) is not type(want):
+                    raise AssertionError(f"elastic: scalar {k} = {v!r}")
+                continue
+            if not isinstance(v, DTensor):
+                raise AssertionError(f"elastic: {k} is {type(v).__name__}")
+            if (v.to_local().device.type != dev.type
+                    or tuple(v.placements) != ns[k].placements):
+                raise AssertionError(f"elastic: {k} on "
+                                     f"{v.to_local().device}, placements "
+                                     f"{v.placements}")
+            sharded += any(p.is_shard() for p in v.placements)
+            spec = str(ns[k].spec)
+            kinds[spec] = kinds.get(spec, 0) + 1
+            full = v.full_tensor()
+            if not same_bits(torch, full, plain[k]):
+                raise AssertionError(f"elastic: {k} differs from "
+                                     "restore_latest's")
             if k not in lossy:
-                if (torch.is_tensor(want) and not torch.equal(v, want)) or (
-                        not torch.is_tensor(want) and v != want):
-                    raise AssertionError(f"checkpoint walk-back: lossless "
+                if not torch.equal(full, want):
+                    raise AssertionError(f"elastic walk-back: lossless "
                                          f"leaf {k} differs")
                 continue
-            rel = ((v - want).abs() / want.abs())
+            rel = (full - want).abs() / want.abs()
             worst = max(worst, float(rel.max()))
             above += int((rel > E).sum())
+        if not sharded:
+            raise AssertionError("elastic: no leaf has a Shard placement")
         # Elementwise |recon - x| <= E |previous recon|: relative to x the
         # bound is E / (1 + r), under 1.1 E for 1 % drift (r > -9 %).
         if worst > 1.1 * E:
-            raise AssertionError(f"checkpoint walk-back: max relative error "
+            raise AssertionError(f"elastic walk-back: max relative error "
                                  f"{worst:.3e} > 1.1 E")
-    log(f"checkpoint restore ms: newest (anchor, onto a meta template) "
-        f"{t_latest * 1e3:.1f}, after a flipped byte walked back to step "
-        f"{step} (anchor + {step} deltas) {t_back * 1e3:.1f}, under "
-        f"telemetry, its spans ms {json.dumps(read_ms)}; report "
-        f"{json.dumps(mgr.last_restore_report)[:160]}; lossless leaves "
-        f"exact, lossy max relative error {worst:.3e} ({above} of "
+    finally:
+        ld.shutdown()
+    log(f"elastic: a flipped byte walked restore_elastic back to step "
+        f"{step} (anchor + {step} deltas) onto the (1, 1) cuda mesh "
+        f"({mesh_ms:.1f} ms to make it) in {ms:.1f} ms, its restore_latest "
+        f"{inner['ms']:.1f} ms (the newest anchor's {ck['latest_ms']:.1f}),"
+        f" under telemetry, its spans ms {json.dumps(read_ms)}; report "
+        f"{json.dumps(mgr.last_restore_report)[:160]}; launches "
+        f"{json.dumps(got)}; {len(want_leaves)} leaves, {sharded} with a "
+        f"Shard placement, specs {json.dumps(kinds)}; every full_tensor() "
+        f"bit-equal to restore_latest's; lossless leaves exact, lossy max "
+        f"relative error {worst:.3e} ({above} of "
         f"{sum(want_leaves[k].numel() for k in lossy)} values above E, "
-        f"within E / (1 + r)); {card}")
+        f"within E / (1 + r)); {card_line()}")
+
+
+# The GPipe schedule (distributed/pipeline_parallel.py) on PIPE_STAGES gloo
+# ranks of the one card: each stage PIPE_ARCH's decoder layers
+# n_layers / PIPE_STAGES at full width in float32, PIPE_MICRO microbatches
+# of (1, PIPE_SEQ, d_model) seeded hidden states.
+PIPE_ARCH = "llama3.2-1b"
+PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 2, 8, 256
+PIPE_OUT_RTOL = 1e-4               # outputs against the sequential layers
+PIPE_GRAD_RTOL = 1e-3              # a stage's gradient against its slice
+
+_PIPE_WORKER = """
+import dataclasses, json, time
+import torch
+import torch.distributed as dist
+from torch import nn
+from torch.distributed.tensor import DTensor, Shard
+from torch.func import functional_call
+from repro_torch.configs import get_config
+from repro_torch.core.tree import leaves_with_keys, map_with_keys
+from repro_torch.distributed.pipeline_parallel import pipeline_apply
+from repro_torch.launch import distributed as ld
+from repro_torch.models import layers as L, lm
+
+t_start = time.perf_counter()
+ld.initialize()
+rank, P = dist.get_rank(), dist.get_world_size()
+mesh = ld.global_mesh("pipe", device_type="cuda")
+dev = torch.device("cuda")
+cfg = dataclasses.replace(get_config("{arch}"), dtype="float32")
+per = cfg.n_layers // P
+M, T = {micro}, {seq}
+positions = torch.arange(T, dtype=torch.int32, device=dev)
+
+
+def layer_tree(i):
+    # decoder layer i's weights, seeded by i, in the reference's layout
+    layer = lm.Layer(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(1000 + i)
+    with torch.no_grad():
+        L.gqa_init(layer.attn, gen)
+        L.ffn_init(layer.mlp, gen)
+    one = lm.stack_layers((f"layers.0.{{n}}", p)
+                          for n, p in layer.named_parameters())["layers"]
+    return map_with_keys(lambda _, t: t[0], one)
+
+
+def stacked(trees):
+    return map_with_keys(lambda k, _: torch.stack(
+        [dict(leaves_with_keys(t))[k] for t in trees]), trees[0])
+
+
+class Stack(nn.Module):
+    def __init__(self, n):
+        super().__init__()
+        self.layers = nn.ModuleList(lm.Layer(cfg, "meta") for _ in range(n))
+
+    def forward(self, x):
+        with L.matmul_numerics():
+            for lp in self.layers:
+                x, _ = lm.layer_apply(lp, x, cfg=cfg, positions=positions,
+                                      window=0)
+        return x
+
+
+def run_layers(module, p, x):
+    n = len(module.layers)
+    return functional_call(module, {{
+        f"layers.{{i}}.{{k.replace('/', '.')}}": v[i]
+        for k, v in leaves_with_keys(p) for i in range(n)}}, (x,))
+
+
+stage = Stack(per)
+mine = stacked([layer_tree(i) for i in range(rank * per, (rank + 1) * per)])
+params = map_with_keys(lambda _, t: DTensor.from_local(
+    t[None], mesh, [Shard(0)], run_check=False).requires_grad_(), mine)
+gen = torch.Generator(device=dev).manual_seed(7)
+x = torch.randn((M, 1, T, cfg.d_model), generator=gen, device=dev)
+leaves = [v for _, v in leaves_with_keys(params)]
+
+
+def pipe_step():
+    out = pipeline_apply(mesh, "pipe", lambda p, h: run_layers(stage, p, h),
+                         params, x)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    grads = torch.autograd.grad((out * out).mean(), leaves)
+    torch.cuda.synchronize()
+    return out, grads, t1
+
+
+t_setup = time.perf_counter() - t_start
+pipe_step()                            # warm-up
+dist.barrier()
+t0 = time.perf_counter()
+out, grads, t1 = pipe_step()
+t2 = time.perf_counter()
+res = dict(rank=rank, fwd_ms=(t1 - t0) * 1e3, bwd_ms=(t2 - t1) * 1e3,
+           peak_gb=torch.cuda.max_memory_allocated() / 1e9, setup_s=t_setup)
+keys = [k for k, _ in leaves_with_keys(params)]
+if rank == 0:
+    trees = [layer_tree(i) for i in range(cfg.n_layers)]
+    full = map_with_keys(lambda _, t: t.requires_grad_(), stacked(trees))
+    del trees
+    seq = Stack(cfg.n_layers)
+    fl = [v for _, v in leaves_with_keys(full)]
+
+    def seq_step():
+        y = run_layers(seq, full, x.reshape(M, T, cfg.d_model))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        g = torch.autograd.grad((y * y).mean(), fl)
+        torch.cuda.synchronize()
+        return y, g, t1
+
+    seq_step()
+    t0 = time.perf_counter()
+    y, g_seq, t1 = seq_step()
+    t2 = time.perf_counter()
+    res.update(seq_fwd_ms=(t1 - t0) * 1e3, seq_bwd_ms=(t2 - t1) * 1e3,
+               peak_gb_seq=torch.cuda.max_memory_allocated() / 1e9)
+    res["out_rel"] = float((out.detach().reshape(y.shape) - y.detach())
+                           .norm() / y.detach().norm())
+    for r in range(1, P):
+        for gs in g_seq:
+            dist.send(gs[r * per:(r + 1) * per].detach().cpu().contiguous(),
+                      r)
+    want = [gs[:per] for gs in g_seq]
+else:
+    want = []
+    for g in grads:
+        buf = torch.empty(g.to_local().shape[1:], dtype=g.dtype)
+        dist.recv(buf, 0)
+        want.append(buf.to(dev))
+num = sum(float((g.to_local()[0] - w).norm() ** 2)
+          for g, w in zip(grads, want))
+den = sum(float(w.norm() ** 2) for w in want)
+res["grad_rel"] = (num / den) ** 0.5
+res["grad_rel_worst"] = max(
+    (float((g.to_local()[0] - w).norm() / w.norm()), k)
+    for g, w, k in zip(grads, want, keys) if float(w.norm()) > 0)
+res["n_params"] = sum(v.to_local().numel() for v in leaves)
+res["worker_s"] = time.perf_counter() - t_start
+ld.shutdown()
+print("PIPE_RESULT " + json.dumps(res))
+"""
+
+
+def pipeline_phase(torch, np, dev) -> None:
+    """pipeline_apply over PIPE_STAGES gloo ranks spawned on the one card
+    (as the multi-process phase runs them): the GPipe schedule over
+    Llama-3.2-1B's decoder layers at full width in float32, its forward
+    within PIPE_OUT_RTOL of the same layers run in sequence on rank 0 and
+    each stage's gradient within PIPE_GRAD_RTOL of the sequential
+    gradient of its slice; ms of the pipelined forward and backward
+    against the sequential ones."""
+    from repro_torch.launch.distributed import check_spawned, spawn_emulated
+    from repro_torch.launch.runtime_env import find_tcmalloc
+
+    lib = find_tcmalloc()
+    log(f"pipeline: declared configuration: {PIPE_STAGES} gloo ranks on "
+        f"one card (NCCL refuses two ranks on one device), activations "
+        f"and gradients staged through the host; the runtime preset "
+        + (f"preloads {lib} into each rank" if lib else
+           "finds no tcmalloc, so nothing is preloaded"))
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    res = spawn_emulated(PIPE_STAGES, ["-c", _PIPE_WORKER.format(
+        arch=PIPE_ARCH, micro=PIPE_MICRO, seq=PIPE_SEQ)], base_env=env,
+        timeout=300)
+    spawn_s = time.perf_counter() - t0
+    check_spawned(res)
+    outs = [json.loads(r.stdout.split("PIPE_RESULT ")[1]) for r in res]
+    head = outs[0]
+    if not head["out_rel"] <= PIPE_OUT_RTOL:
+        raise AssertionError(f"pipeline: outputs {head['out_rel']:.3e} from "
+                             "the sequential layers")
+    for o in outs:
+        if not o["grad_rel"] <= PIPE_GRAD_RTOL:
+            raise AssertionError(f"pipeline: stage {o['rank']}'s gradient "
+                                 f"{o['grad_rel']:.3e} from the sequential "
+                                 "one")
+    log(f"pipeline: {PIPE_STAGES} stages of "
+        f"{[o['n_params'] for o in outs]} float32 parameters, "
+        f"{PIPE_MICRO} microbatches of (1, {PIPE_SEQ}, d): forward "
+        f"{max(o['fwd_ms'] for o in outs):.1f} ms and backward "
+        f"{max(o['bwd_ms'] for o in outs):.1f} ms (slowest rank) against "
+        f"the sequential {head['seq_fwd_ms']:.1f} and "
+        f"{head['seq_bwd_ms']:.1f} ms on rank 0; outputs "
+        f"{head['out_rel']:.3e} relative, stage gradients "
+        f"{[round(o['grad_rel'], 9) for o in outs]} (worst leaf "
+        f"{[o['grad_rel_worst'] for o in outs]}); peak GB a rank after "
+        f"the pipelined steps {[round(o['peak_gb'], 2) for o in outs]}, "
+        f"on rank 0 after the sequential run too "
+        f"{head['peak_gb_seq']:.2f}; {spawn_s:.1f} s with "
+        f"process start (in the workers: setup "
+        f"{[round(o['setup_s'], 1) for o in outs]} s, all "
+        f"{[round(o['worker_s'], 1) for o in outs]} s); {card_line()}")
 
 
 # Llama-3.2-1B (src/repro_torch/configs/llama3_2_1b.py) served at full width:
@@ -2799,9 +3103,16 @@ def run(torch, np) -> dict:
     mark("telemetry")
     telemetry_phase(torch, np, dev, data, launches)
 
-    # -- 9. the checkpoint manager ----------------------------------------
+    # -- 9. the checkpoint manager, elastic restore, the GPipe schedule ---
     mark("checkpoint")
-    checkpoint_phase(torch, np, dev, launches)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = checkpoint_phase(torch, np, dev, launches, tmp)
+        mark("elastic")
+        elastic_phase(torch, np, dev, ck, launches)
+        del ck
+    torch.cuda.empty_cache()
+    mark("pipeline")
+    pipeline_phase(torch, np, dev)
 
     # -- 10. the models and the serving engine -----------------------------
     mark("serve")

@@ -16,7 +16,12 @@ ways into the same code path:
 
 The collectives backend is gloo: NCCL refuses two ranks on one device,
 and only metadata crosses ranks (``distributed.collectives``), staged
-through the host.  Importing this module starts nothing.
+through the host.  Spawned ranks get the runtime preset
+(``launch/runtime_env.py``: tcmalloc where the host has it, torch's C++
+logs kept to errors) unless the caller turns it off.  ``global_mesh``
+gives a 1-D ``DeviceMesh`` over every rank; a process that is not part of
+a fleet joins a one-rank group for it.  Importing this module starts
+nothing.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from typing import Dict, List, Optional, Sequence
 import torch.distributed as dist
 
 from repro_torch.faults.retry import Backoff
+from repro_torch.launch.runtime_env import runtime_env
 
 ENV_COORDINATOR = "REPRO_COORDINATOR"
 ENV_NUM_PROCESSES = "REPRO_NUM_PROCESSES"
@@ -83,9 +89,31 @@ def initialize(cfg: Optional[DistributedConfig] = None, *,
 
 
 def shutdown() -> None:
-    """Leave the fleet (idempotent)."""
+    """Leave the fleet, or the one-rank group ``join_alone`` made
+    (idempotent)."""
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def join_alone() -> None:
+    """Make this process a one-rank group over an in-memory store (no
+    port, no peer) unless a group is up: a mesh needs a group, and
+    ``initialize`` starts none for one process."""
+    if not dist.is_initialized():
+        dist.init_process_group("gloo", store=dist.HashStore(),
+                                world_size=1, rank=0)
+
+
+def global_mesh(axis: str = "data", device_type: str = "cuda"):
+    """1-D ``DeviceMesh`` named `axis` over every rank of the default
+    group, in rank order (rank r holds shard r of an evenly split axis,
+    the contiguous-ownership layout the per-host writer tier relies
+    on)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    join_alone()
+    return init_device_mesh(device_type, (dist.get_world_size(),),
+                            mesh_dim_names=(axis,))
 
 
 def process_rank() -> int:
@@ -104,9 +132,12 @@ def free_port() -> int:
 
 
 def rank_env(rank: int, num_processes: int, coordinator: str, *,
-             base: Optional[Dict[str, str]] = None) -> Dict[str, str]:
-    """Child environment for emulated rank `rank`: the fleet coordinates."""
-    env = dict(os.environ if base is None else base)
+             base: Optional[Dict[str, str]] = None,
+             preset: bool = True) -> Dict[str, str]:
+    """Child environment for emulated rank `rank`: the fleet coordinates
+    plus, with `preset`, the runtime preset (tcmalloc, log level)."""
+    env = (runtime_env(base) if preset
+           else dict(os.environ if base is None else base))
     env[ENV_COORDINATOR] = coordinator
     env[ENV_NUM_PROCESSES] = str(num_processes)
     env[ENV_PROCESS_ID] = str(rank)
@@ -126,11 +157,12 @@ def _coordinator_bind_failed(results: List[subprocess.CompletedProcess]
 
 
 def _spawn_once(num_processes: int, argv: Sequence[str], coordinator: str,
-                base_env: Optional[Dict[str, str]], timeout: float
-                ) -> List[subprocess.CompletedProcess]:
+                base_env: Optional[Dict[str, str]], preset: bool,
+                timeout: float) -> List[subprocess.CompletedProcess]:
     procs = [subprocess.Popen(
         [sys.executable, *argv],
-        env=rank_env(rank, num_processes, coordinator, base=base_env),
+        env=rank_env(rank, num_processes, coordinator, base=base_env,
+                     preset=preset),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for rank in range(num_processes)]
     deadline = time.monotonic() + timeout
@@ -151,20 +183,22 @@ def _spawn_once(num_processes: int, argv: Sequence[str], coordinator: str,
 
 def spawn_emulated(num_processes: int, argv: Sequence[str], *,
                    base_env: Optional[Dict[str, str]] = None,
-                   timeout: float = 600.0, bind_attempts: int = 3
+                   preset: bool = True, timeout: float = 600.0,
+                   bind_attempts: int = 3
                    ) -> List[subprocess.CompletedProcess]:
     """Launch ``python <argv...>`` num_processes times on localhost with a
     shared free-port coordinator; wait for all (killing every rank at the
     deadline); return per-rank results in rank order.  Does not raise on
     nonzero exits (``check_spawned`` does).  A fleet that failed to bind
     its coordinator port is relaunched with a fresh one, up to
-    ``bind_attempts`` times with jittered backoff."""
+    ``bind_attempts`` times with jittered backoff.  `preset` applies the
+    runtime preset to every rank's environment (``rank_env``)."""
     results: List[subprocess.CompletedProcess] = []
     delays = Backoff(attempts=max(1, bind_attempts) - 1, base=0.1).delays()
     for _ in range(max(1, bind_attempts)):
         coordinator = f"{HOST}:{free_port()}"
         results = _spawn_once(num_processes, argv, coordinator, base_env,
-                              timeout)
+                              preset, timeout)
         if not _coordinator_bind_failed(results):
             break
         try:
@@ -184,6 +218,6 @@ def check_spawned(results: List[subprocess.CompletedProcess]) -> None:
 
 
 __all__ = ["DistributedConfig", "env_config", "initialize", "shutdown",
-           "process_rank", "process_count", "free_port", "rank_env",
-           "spawn_emulated", "check_spawned", "ENV_COORDINATOR",
-           "ENV_NUM_PROCESSES", "ENV_PROCESS_ID"]
+           "join_alone", "global_mesh", "process_rank", "process_count",
+           "free_port", "rank_env", "spawn_emulated", "check_spawned",
+           "ENV_COORDINATOR", "ENV_NUM_PROCESSES", "ENV_PROCESS_ID"]

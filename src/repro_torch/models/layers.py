@@ -25,7 +25,8 @@ Unlike the reference's functional update, ``gqa_decode`` and
 ``mla_decode`` write the new slot into the cache tensors in place.
 
 The MoE's expert-parallel sharding constraints (``shd.constrain`` on the
-dispatch and expert buffers) are dropped: they are no-ops on one device.
+dispatch and expert buffers) are not called: the model runs on plain
+tensors, for which ``distributed.sharding.constrain`` is the identity.
 """
 from __future__ import annotations
 

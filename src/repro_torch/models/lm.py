@@ -32,8 +32,9 @@ each layer in the backward (``torch.utils.checkpoint``).
 Every layer window is a Python int, so ``chunked_sdpa`` skips the fully
 masked blocks of hymba's sliding-window layers too, where the reference
 traces mixed windows and visits every block (the skipped blocks add
-exactly nothing).  ``shd.constrain`` is dropped (a no-op on one
-device).
+exactly nothing).  ``shd.constrain`` is not called: the model runs on
+plain tensors, for which ``distributed.sharding.constrain`` is the
+identity.
 
 The frontends are stubs, as in the reference: paligemma (``family ==
 "vlm"``) takes ``n_prefix`` precomputed patch embeddings ahead of its

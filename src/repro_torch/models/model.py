@@ -8,8 +8,8 @@ The model runs on the CUDA device unless the caller passes
 ``device="cpu"``; without a GPU a CUDA device raises.  Its parameters
 never require grad, so serving builds no graph; training binds views of
 the reference-layout tree that do (``lm.bind_params``).
-``input_specs``/``shape_params`` (the reference's dry-run stand-ins)
-come with the launch tooling (item 8).
+``shape_params`` gives the parameter tree's shapes on "meta"; the
+reference's dry-run stand-in ``input_specs`` comes with the dry run.
 """
 from __future__ import annotations
 
@@ -49,6 +49,12 @@ class Model:
         if not isinstance(generator, torch.Generator):
             generator = torch.Generator(device=dev).manual_seed(generator)
         return lm.init_params(generator, self.cfg, dev)
+
+    def shape_params(self) -> Dict:
+        """The parameter tree in the reference's layout (``lm.param_tree``:
+        its keys, the layers stacked) as "meta" tensors: shapes and
+        dtypes, nothing allocated."""
+        return lm.param_tree(lm.LM(self.cfg, "meta"))
 
     def param_count(self) -> int:
         """Elements of every parameter (shapes only; nothing allocated)."""

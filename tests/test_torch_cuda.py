@@ -1136,3 +1136,51 @@ def test_cuda_zfp_exponents_match_the_cpu(cuda):
     ge1 = xs[xs >= 1]
     assert torch.equal(zfp_like._floor_log2(ge1.to(cuda)).cpu(),
                        zfp_like._floor_log2(ge1))
+
+
+@pytest.mark.cuda
+def test_cuda_restore_elastic_onto_a_one_rank_mesh(cuda, tmp_path):
+    """A checkpoint of the reduced llama3.2-1b (an anchor and a lossy
+    delta) restored by restore_elastic onto the (1, 1) ("data", "model")
+    CUDA mesh of this process: each leaf a DTensor on the card with the
+    parameter rules' placements, its full tensor bit-equal to
+    restore_latest's."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.elastic import restore_elastic
+    from repro_torch.core.tree import leaves_with_keys, map_with_keys
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import distributed as ld
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import param_tree
+    from repro_torch.models.model import build
+
+    model = build("llama3.2-1b", smoke=True)
+    tree = param_tree(model.init(0, device=cuda))
+    mgr = CheckpointManager(str(tmp_path), device=cuda)
+    mgr.save(0, {"params": tree})
+    mgr.save(1, {"params": map_with_keys(lambda _, t: t * 1.01, tree)})
+    mgr.wait()
+    template = {"params": model.shape_params()}
+    want = CheckpointManager(str(tmp_path), device=cuda).restore_latest(
+        template=template)[1]
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    try:
+        step, got = restore_elastic(CheckpointManager(str(tmp_path),
+                                                      device=cuda),
+                                    template, model.cfg, mesh)
+        ns = dict(leaves_with_keys(shd.named_shardings(want, model.cfg,
+                                                       mesh)))
+        assert step == 1
+        sharded = 0
+        for key, leaf in leaves_with_keys(got):
+            assert isinstance(leaf, DTensor)
+            assert leaf.to_local().device.type == "cuda"
+            assert tuple(leaf.placements) == ns[key].placements
+            sharded += any(p.is_shard() for p in leaf.placements)
+            assert torch.equal(leaf.full_tensor(),
+                               dict(leaves_with_keys(want))[key])
+        assert sharded > 0
+    finally:
+        ld.shutdown()

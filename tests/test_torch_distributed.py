@@ -288,9 +288,12 @@ def test_sharded_drivers_never_fall_back(monkeypatch):
 # ------------------------------------------------------------ the launch
 
 def test_launch_environment():
-    env = ld.rank_env(1, 4, "127.0.0.1:1234", base={})
+    env = ld.rank_env(1, 4, "127.0.0.1:1234", base={}, preset=False)
     assert env == {ld.ENV_COORDINATOR: "127.0.0.1:1234",
                    ld.ENV_NUM_PROCESSES: "4", ld.ENV_PROCESS_ID: "1"}
+    preset = ld.rank_env(1, 4, "127.0.0.1:1234", base={})
+    assert preset.items() >= env.items()
+    assert preset["TORCH_CPP_LOG_LEVEL"] == "ERROR"
     cfg = ld.env_config(env)
     assert (cfg.coordinator, cfg.num_processes, cfg.process_id) == (
         "127.0.0.1:1234", 4, 1)

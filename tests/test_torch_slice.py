@@ -310,7 +310,11 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.serve.engine, repro_torch.configs, "
             "repro_torch.train.trainer, repro_torch.launch.train, "
             "repro_torch.data.tokens, repro_torch.faults, "
-            "repro_torch.models.ssm\n"
+            "repro_torch.models.ssm, repro_torch.launch.mesh, "
+            "repro_torch.launch.runtime_env, "
+            "repro_torch.distributed.sharding, "
+            "repro_torch.distributed.pipeline_parallel, "
+            "repro_torch.checkpoint.elastic\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
             "assert not bad, bad\n")
@@ -342,11 +346,6 @@ def test_no_jax_or_repro_import_in_the_port():
 # queues each.
 UNPORTED_MODULES = {
     "repro.analysis": "item 9 (lint for the port)",
-    "repro.checkpoint.elastic": "item 8b",
-    "repro.distributed.pipeline_parallel": "item 8b",
-    "repro.distributed.sharding": "item 8b",
-    "repro.launch.mesh": "item 8b",
-    "repro.launch.runtime_env": "item 8b",
     "repro.launch.cost_model": "item 8c",
     "repro.launch.dryrun": "item 8c",
     "repro.models.unroll": "item 8c",
@@ -381,7 +380,8 @@ NOT_EXPORTED = {
     "repro.kernels.rans": dict.fromkeys(
         _RANS_LOWERINGS, "the scan bodies and their jnp helpers; "
         "csrc/rans.cu's kernels and the *_plain lane loops"),
-    "repro.launch.distributed": {"global_mesh": "item 8b (a mesh)"},
+    "repro.launch.runtime_env": {
+        "merge_xla_flags": "XLA flags: a torch process needs none"},
     "repro.models.layers": {"rms_norm_init": "the RMSNorm module"},
     "repro.models.lm": {"init_layer": "the Layer module and init_params"},
 }
