@@ -12,6 +12,7 @@ export PYTHONPATH := src$(if $(PYTHONPATH),:$(PYTHONPATH))
 # (CI always installs it, so the zero-findings gate still holds).
 lint:
 	$(PY) -m repro.analysis
+	$(PY) -m repro_torch.analysis
 	@if $(PY) -m ruff --version >/dev/null 2>&1; then \
 	  $(PY) -m ruff check src tests benchmarks; \
 	else \

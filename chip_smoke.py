@@ -145,12 +145,26 @@ Phases, each fatal on failure (exit code 1, no result line):
               byte-identical to the host coder, both timed.  The card's
               clocks and temperature are logged before and after.
 
+  14. dryrun  the dry run (repro_torch.launch.dryrun) on a fake 256- and
+              512-rank fleet of CPU processes, no card: Llama-3.2-1B's
+              three shapes on both meshes (each must be OK), and one cell
+              each of MLA, MoE, SSM, hybrid, vlm and audio and the
+              compression cell on one pod, in DRYRUN_JOBS processes at
+              once, started at the lowest priority beside phase 13; one
+              line a cell.  Beside them the train phase's step
+              under the op counter (repro_torch.launch.cost_model): its
+              counted FLOPs against flops_cell, and the measured step
+              against the H100 roofline's compute and memory time, the
+              port's first share of peak for a model step.  The kernels
+              line is unchanged: the phase launches no kernel.
+
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last {"ok": true, "device": {...}}.  It needs the repo's
 src/ beside it and a CUDA device, and exits non-zero without either.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import gzip
 import json
@@ -2556,6 +2570,11 @@ def train_phase(torch, np, dev, launches: dict) -> dict:
             flat = dict(leaves_with_keys(g))
             grads = {k: flat[k].float() for k in GRAD_LEAVES}
             del g, flat
+            # one more step under the op counter, for the dryrun phase
+            out["share_of_peak"] = step_share(
+                torch, tr, state, {k: torch.as_tensor(v, device=dev)
+                                   for k, v in pipe.batch(step).items()},
+                step_ms, card)
         del tr, state
         torch.cuda.empty_cache()
 
@@ -2922,6 +2941,155 @@ def baselines_phase(torch, np, dev, data: dict, results: dict,
     return out
 
 
+# The dry run's cells: (mesh, cells, the compression cell's meshes), one
+# process each, all at once (repro_torch.launch.dryrun.run_cell), split
+# so that each takes ~15 s of one core of the card's host (7 of its 8).
+# The Llama cells and those of tests/test_torch_dryrun.py must be OK.
+DRYRUN_JOBS = (
+    ("single", (("llama3.2-1b", "train_4k"), ("llama3.2-1b", "decode_32k")),
+     ()),
+    ("single", (("llama3.2-1b", "prefill_32k"),), ()),
+    ("multi", (("llama3.2-1b", "train_4k"), ("llama3.2-1b", "decode_32k")),
+     ()),
+    ("multi", (("llama3.2-1b", "prefill_32k"),), ()),
+    ("single", (("minicpm3-4b", "train_4k"),), ()),
+    ("single", (("mixtral-8x7b", "decode_32k"),), ()),
+    ("single", (("mamba2-780m", "decode_32k"), ("hymba-1.5b", "long_500k"),
+                ("paligemma-3b", "decode_32k"),
+                ("musicgen-medium", "decode_32k")), ("single", "multi")),
+)
+DRYRUN_MUST = {("llama3.2-1b", s, m) for m in ("single", "multi")
+               for s in ("train_4k", "prefill_32k", "decode_32k")} | {
+    ("mamba2-780m", "decode_32k", "single"),
+    ("numarck-pipeline", "n2e+09", "single"),
+    ("numarck-pipeline", "n2e+09", "multi")}
+DRYRUN_TIMEOUT = 180
+_DRYRUN_WORKER = """
+import json, sys
+from repro_torch.launch import dryrun
+cells, mesh, out = json.loads(sys.argv[1]), sys.argv[2], sys.argv[3]
+for arch, shape in cells:
+    dryrun.run_cell(arch, shape, mesh, out)
+for m in json.loads(sys.argv[4]):
+    dryrun.run_compression_dryrun(m, out)
+"""
+
+
+def step_share(torch, tr, state, batch: dict, step_ms: float,
+               card: str) -> dict:
+    """One more train step (compression off) of ``tr`` under the op
+    counter: its counted FLOPs and bytes against ``flops_cell`` at the
+    step's shape, and the measured step (``step_ms``, the fit's median)
+    against the H100 roofline of those counts."""
+    from repro_torch.launch import cost_model, dryrun
+    from repro_torch.models import config as mc
+
+    B, S = batch["tokens"].shape
+    with cost_model.OpCounter() as counter:
+        tr._step_fn(state.params, state.opt_state, state.gc_state, batch)
+        torch.cuda.synchronize()
+    cost = counter.cost()
+    mc.SHAPES["__chip_train__"] = dict(kind="train", seq_len=S,
+                                       global_batch=B)
+    try:
+        ana = cost_model.flops_cell(tr.model.cfg, "__chip_train__")
+    finally:
+        del mc.SHAPES["__chip_train__"]
+    hw = dryrun.HW
+    compute_s = cost["flops"] / hw["peak_flops_bf16"]
+    memory_s = cost["bytes accessed"] / hw["hbm_bw"]
+    out = dict(batch=B, seq=S, counted_flops=cost["flops"],
+               counted_bytes=cost["bytes accessed"], ops=cost["ops"],
+               flops_cell=ana, counted_over_analytic=cost["flops"] / ana,
+               step_ms=step_ms, compute_ms=compute_s * 1e3,
+               memory_ms=memory_s * 1e3,
+               share_of_peak=max(compute_s, memory_s) / (step_ms / 1e3),
+               compute_share=compute_s / (step_ms / 1e3),
+               memory_share=memory_s / (step_ms / 1e3), card=card)
+    log(f"share of peak: {tr.model.cfg.name} train step {B} x {S} "
+        f"(compression off): counted {cost['flops']:.4e} FLOPs "
+        f"(flops_cell {ana:.4e}, ratio {out['counted_over_analytic']:.4f}), "
+        f"{cost['bytes accessed']:.4e} bytes of eager traffic, "
+        f"{cost['ops']} ops; step {step_ms:.1f} ms against roofline "
+        f"compute {out['compute_ms']:.3f} ms (ratio "
+        f"{out['compute_share']:.4f}) and memory {out['memory_ms']:.3f} ms "
+        f"(ratio {out['memory_share']:.4f}): share of peak "
+        f"{out['share_of_peak']:.4f}; {card}")
+    return out
+
+
+def dryrun_start() -> dict:
+    """Start the DRYRUN_JOBS processes (CPU only, meta tensors, a fake
+    process group each; the records land in OUT / "dryrun") at the
+    lowest priority, so that they run beside the kernel phase on the
+    host's other cores without taking the launching thread's.  They are
+    killed at exit if still running."""
+    out_dir = OUT / "dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN_WORKER, json.dumps(cells), mesh,
+         str(out_dir), json.dumps(comp)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        preexec_fn=lambda: os.nice(19))
+        for mesh, cells, comp in DRYRUN_JOBS]
+
+    def kill():
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+    atexit.register(kill)
+    return dict(procs=procs, out_dir=out_dir, t0=time.perf_counter(),
+                kill=kill)
+
+
+def dryrun_phase(started: dict, share: dict) -> dict:
+    """Wait for ``dryrun_start``'s processes and print one line a cell.
+    Fails unless every DRYRUN_MUST cell is OK."""
+    procs, out_dir, t0 = started["procs"], started["out_dir"], started["t0"]
+    t_wait = time.perf_counter()
+    try:
+        for p in procs:
+            text, _ = p.communicate(timeout=DRYRUN_TIMEOUT)
+            if p.returncode:
+                raise AssertionError(f"dryrun worker exit {p.returncode}: "
+                                     f"{text[-3000:]}")
+    finally:
+        started["kill"]()
+    wall = time.perf_counter() - t0
+    waited = time.perf_counter() - t_wait
+    recs = [json.loads(f.read_text()) for f in sorted(out_dir.glob("*.json"))]
+    status = {(r["arch"], r["shape"], r["mesh"]): r["status"] for r in recs}
+    for r in recs:
+        if r["status"] == "OK":
+            t = r["roofline"]
+            log(f"dryrun {r['arch']} {r['shape']} {r['mesh']}: OK, "
+                f"{r['chips']} ranks, counted {r['flops_per_device']:.4e} "
+                f"FLOPs and {r['bytes_per_device']:.4e} bytes a rank, "
+                f"collectives {r['collective_bytes_per_device']:.4e} B; "
+                f"roofline compute {t['compute_s']:.3e} s, memory "
+                f"{t['memory_s']:.3e} s, collective {t['collective_s']:.3e} "
+                f"s ({r['dominant']}); trace {r.get('compile_s')} s")
+        else:
+            log(f"dryrun {r['arch']} {r['shape']} {r['mesh']}: "
+                f"{r['status']} {r.get('error', '')[:300]}")
+    missing = sorted(c for c in DRYRUN_MUST if status.get(c) != "OK")
+    if missing:
+        raise AssertionError(f"dryrun: not OK: {missing}")
+    n_ok = sum(v == "OK" for v in status.values())
+    log(f"dryrun: {n_ok} of {len(recs)} cells OK in {wall:.1f} s, "
+        f"{waited:.1f} s of it after the kernel phase "
+        f"({len(DRYRUN_JOBS)} processes; cells "
+        f"{json.dumps(sorted(status))}); the train step's share of peak "
+        f"{share['share_of_peak']:.4f} (step {share['step_ms']:.1f} ms, "
+        f"roofline compute {share['compute_ms']:.3f} ms, memory "
+        f"{share['memory_ms']:.3f} ms); {share['card']}")
+    return dict(wall_s=wall, waited_s=waited, status={"/".join(k): v
+                                     for k, v in status.items()})
+
+
 def run(torch, np) -> dict:
     from repro_torch import compress_series, decompress_series, interop
     from repro_torch.core import compress, packing, ratios
@@ -3123,13 +3291,15 @@ def run(torch, np) -> dict:
 
     # -- 11. training: the trainer, gradient compression, restart ---------
     mark("train")
-    train_phase(torch, np, dev, launches)
+    trained = train_phase(torch, np, dev, launches)
 
     # -- 12. the paper's baselines on the card -----------------------------
     mark("baselines")
     baselines_phase(torch, np, dev, data, results, launches)
 
     # -- 13. each kernel against its plain version, timed ------------------
+    # (the dry run's CPU processes start beside it: phase 14)
+    dry = dryrun_start()
     mark("kernels")
     log_clocks("before the kernel phase")
     prev_big, curr_big = big_pair(np, N_BIG)
@@ -3314,6 +3484,10 @@ def run(torch, np) -> dict:
             table["hist"]["launch"] = plan
         del ids, valid_ids
     log_clocks("after the kernel phase")
+
+    # -- 14. the dry run on a fake fleet (CPU processes, no kernel) --------
+    mark("dryrun")
+    dryrun_phase(dry, trained["share_of_peak"])
     mark("end")
     return table
 

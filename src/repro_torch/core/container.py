@@ -420,7 +420,7 @@ def _quarantine(path: str) -> str:
         q = f"{path}.quarantine{i}"
     # Not a durable publish: the corrupt bytes are LEAVING the committed
     # namespace, and fsyncing known-garbage buys nothing.
-    os.replace(path, q)
+    os.replace(path, q)  # repro-lint: disable=format-closure
     return q
 
 

@@ -33,12 +33,19 @@ def valid_ends(ratios: torch.Tensor, valid: torch.Tensor):
     """(min, max) over valid ratios as host floats, each zero end signed
     as XLA's min and max sign it; (inf, -inf) when none are valid.  One
     device-to-host copy (two when an end is zero)."""
-    lo = torch.where(valid, ratios, float("inf")).amin()
-    hi = torch.where(valid, ratios, float("-inf")).amax()
-    lo, hi = torch.stack([lo, hi]).tolist()
+    lo, hi = valid_ends_device(ratios, valid).tolist()
     if lo == 0 or hi == 0:
         lo, hi = _signed_zero_ends(ratios, valid, lo, hi)
     return lo, hi
+
+
+def valid_ends_device(ratios: torch.Tensor, valid: torch.Tensor):
+    """``valid_ends``' device part: (2,) float32 on the ratios' device,
+    the min and max over valid ratios (inf, -inf when none are valid),
+    zeros unsigned."""
+    lo = torch.where(valid, ratios, float("inf")).amin()
+    hi = torch.where(valid, ratios, float("-inf")).amax()
+    return torch.stack([lo, hi])
 
 
 def ratio_range(ratios: torch.Tensor, valid: torch.Tensor):
@@ -105,5 +112,6 @@ def candidate_bin_ids(ratios: torch.Tensor, valid: torch.Tensor, domain_lo,
     return ids.to(torch.int32), ok
 
 
-__all__ = ["change_ratios", "valid_ends", "ratio_range", "histogram_domain",
+__all__ = ["change_ratios", "valid_ends", "valid_ends_device", "ratio_range",
+           "histogram_domain",
            "candidate_bin_ids"]

@@ -94,6 +94,8 @@ def generate_series(spec_name: str, n_iterations: int = 5, seed: int = 0,
 def dataset_bytes(spec_name: str, scale: int = 1) -> int:
     spec = SPECS[spec_name]
     shape = tuple(max(4, s // scale) for s in spec.shape)
+    # a dataset's dtype is a numpy name, float32 or float64
+    # repro-lint: disable=dtype-hazard
     return int(np.prod(shape)) * np.dtype(spec.dtype).itemsize
 
 

@@ -83,6 +83,27 @@ def _check_devices(devices) -> List[torch.device]:
     return out
 
 
+def analyze_device(devices, prev_sh, curr_sh, domain_lo, width, bound, *,
+                   max_bins: int, reduce_sum, kernels=kops):
+    """The device part of phases 1-2 (the reference's ``_analyze_shard``
+    after its range Allreduce): per shard its candidate-bin ids and
+    histogram, the histograms summed by ``reduce_sum`` (a list of
+    per-shard histograms -> their sum), and the sum's descending sort.
+    ``kernels`` has ``change_ratio_bins`` and ``histogram``: the dispatch
+    of ``kernels.ops``, or the plain versions (the dry run's meta
+    tensors).  -> (bin_ids per shard, counts_desc, ids_desc)."""
+    bin_ids, hists = [], []
+    for d, prev_l, curr_l in zip(devices, prev_sh, curr_sh):
+        with _on(torch.device(d)):
+            _, ids = kernels.change_ratio_bins(prev_l, curr_l, domain_lo,
+                                               width, max_bins=max_bins)
+            bin_ids.append(ids)
+            hists.append(kernels.histogram(ids, max_bins=max_bins,
+                                           id_bound=bound))
+    counts_desc, ids_desc = binning.sort_histogram(reduce_sum(hists))
+    return bin_ids, counts_desc, ids_desc
+
+
 def _shard(flat: np.ndarray, s: int, ln: int,
            dev: torch.device) -> torch.Tensor:
     """Elements [s*ln, (s+1)*ln) of ``flat`` on ``dev``, zero-padded past
@@ -199,16 +220,10 @@ class ShardedCompressor:
             hi = hi if np.isfinite(hi) else np.float32(0.0)
             domain_lo, width, bound = ratios.histogram_domain(
                 lo, hi, p.error_bound, p.max_bins)
-        bin_ids, hists = [], []
-        for d, prev_l, curr_l in zip(self.devices, prev_sh, curr_sh):
-            with _on(d):
-                _, ids = kops.change_ratio_bins(prev_l, curr_l, domain_lo,
-                                                width, max_bins=p.max_bins)
-                bin_ids.append(ids)
-                hists.append(kops.histogram(ids, max_bins=p.max_bins,
-                                            id_bound=bound))
-        hist = coll.allreduce_sum(hists, self.group)
-        counts_desc, ids_desc = binning.sort_histogram(hist)
+        bin_ids, counts_desc, ids_desc = analyze_device(
+            self.devices, prev_sh, curr_sh, domain_lo, width, bound,
+            max_bins=p.max_bins,
+            reduce_sum=lambda hs: coll.allreduce_sum(hs, self.group))
         b_auto, est_sizes = select_b.choose_b(counts_desc, n, ebytes,
                                               p.b_max)
         return dict(bin_ids=bin_ids, ids_desc=ids_desc, b_auto=b_auto,
@@ -828,5 +843,5 @@ class MultiProcessCompressor(ShardedCompressor):
         return w.rank_path
 
 
-__all__ = ["ShardedCompressor", "ShardedDecompressor",
+__all__ = ["ShardedCompressor", "ShardedDecompressor", "analyze_device",
            "MultiProcessCompressor"]

@@ -23,8 +23,9 @@ elsewhere.  DTensor splits a dim as ``torch.chunk`` does where GSPMD pads
 Activation constraints go through a process-global active mesh so model
 code stays mesh-agnostic: ``constrain`` returns its input unchanged when
 no mesh is active or the input is a plain tensor, and redistributes a
-DTensor.  The port's model runs on plain tensors, so it does not call
-``constrain`` yet.
+DTensor.  The model calls it at the reference's four sites and at the
+layouts DTensor needs (``models/layers.py``); outside the dry run it runs
+on plain tensors, where every call is the identity.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ from typing import Any, Dict, Optional, Tuple
 
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.core.tree import map_with_keys
+from repro_torch.core.tree import leaves_with_keys, map_with_keys
 
 _ACTIVE = {"mesh": None, "dp": ("data",), "tp": "model",
            "shard_seq": False}
@@ -89,6 +90,11 @@ def activate(mesh, dp_axes=("data",), tp_axis="model",
 
 def deactivate():
     _ACTIVE.update(mesh=None)
+
+
+def active_axes():
+    """(dp axes, tp axis) of the active mesh."""
+    return _ACTIVE["dp"], _ACTIVE["tp"]
 
 
 def mesh_axes(mesh) -> Dict[str, int]:
@@ -164,12 +170,32 @@ def constrain(x, *logical):
     mesh = _ACTIVE["mesh"]
     if mesh is None or not isinstance(x, DTensor):
         return x
-    dp, tp = _ACTIVE["dp"], _ACTIVE["tp"]
+    return x.redistribute(mesh, layout(x.shape, *logical))
+
+
+def layout(shape, *logical) -> tuple:
+    """The placements on the active mesh of a tensor of `shape` laid out
+    by `logical`, as ``constrain`` resolves it.  "dp" falls back to
+    replication where the dim does not divide (a batch of 1): DTensor's
+    views refuse the uneven shards GSPMD pads."""
+    mesh, dp, tp = _ACTIVE["mesh"], _ACTIVE["dp"], _ACTIVE["tp"]
+    dp_size = axis_size(mesh, _dp_name(dp))
     resolved = tuple(
-        ("tp" if _ACTIVE["shard_seq"] else None) if ax == "seq" else ax
-        for ax in logical)
-    spec = logical_to_spec(resolved, mesh, dp, tp, shape=x.shape)
-    return x.redistribute(mesh, placements(spec, mesh))
+        ("tp" if _ACTIVE["shard_seq"] else None) if ax == "seq"
+        else (None if ax == "dp" and shape[i] % dp_size else ax)
+        for i, ax in enumerate(logical))
+    spec = logical_to_spec(resolved, mesh, dp, tp, shape=shape)
+    return placements(spec, mesh)
+
+
+def heads_axis(n: int):
+    """The logical axis of a dim of `n` heads: "tp" where `n` divides over
+    the active mesh's tp axis (or no mesh is active), else None
+    (replicated)."""
+    mesh = _ACTIVE["mesh"]
+    if mesh is None or n % axis_size(mesh, _ACTIVE["tp"]) == 0:
+        return "tp"
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -347,6 +373,22 @@ def cache_specs(cache_tree, mesh, dp=("data",), tp="model",
     return map_with_keys(one, cache_tree)
 
 
+def place_cache(cache_tree, stacked: bool = True):
+    """A decode cache as DTensors laid out by ``cache_specs`` on the
+    active mesh (each rank its shard, no collective); the tree itself
+    when no mesh is active."""
+    mesh = _ACTIVE["mesh"]
+    if mesh is None:
+        return cache_tree
+    from torch.distributed.tensor import distribute_tensor
+    specs = dict(leaves_with_keys(cache_specs(
+        cache_tree, mesh, _ACTIVE["dp"], _ACTIVE["tp"], stacked)))
+    return map_with_keys(
+        lambda key, t: distribute_tensor(t, mesh, placements(specs[key],
+                                                             mesh),
+                                         src_data_rank=None), cache_tree)
+
+
 def batch_specs(batch_tree, mesh, dp=("data",)):
     """Input batches: shard the leading (global batch) dim over dp."""
     dp_name = _dp_name(dp)
@@ -365,6 +407,8 @@ def batch_specs(batch_tree, mesh, dp=("data",)):
 
 
 __all__ = ["PartitionSpec", "NamedSharding", "activate", "deactivate",
-           "constrain", "param_specs", "named_shardings", "logical_to_spec", "axis_size",
-           "mesh_axes", "placements", "param_logical", "cache_specs",
+           "active_axes", "constrain", "layout", "heads_axis",
+           "param_specs",
+           "named_shardings", "logical_to_spec", "axis_size", "mesh_axes",
+           "placements", "param_logical", "cache_specs", "place_cache",
            "batch_specs"]

@@ -84,7 +84,9 @@ def build(names: Sequence[str] = SOURCES) -> float:
             failed.append(f"--- {name}.cu (exit {proc.returncode})\n"
                           + out.decode(errors="replace"))
         else:
-            os.replace(tmp, so)
+            # a build output, not a durable publish: a lost library is
+            # rebuilt, and the rename keeps readers off a half-written one
+            os.replace(tmp, so)  # repro-lint: disable=format-closure
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0

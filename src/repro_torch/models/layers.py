@@ -24,9 +24,12 @@ Decode caches (the reference's layout, so session files carry its keys):
 Unlike the reference's functional update, ``gqa_decode`` and
 ``mla_decode`` write the new slot into the cache tensors in place.
 
-The MoE's expert-parallel sharding constraints (``shd.constrain`` on the
-dispatch and expert buffers) are not called: the model runs on plain
-tensors, for which ``distributed.sharding.constrain`` is the identity.
+Sharding constraints (``shd.constrain``) sit where the reference's do,
+on the MoE's dispatch and expert buffers, and where DTensor needs a
+layout the reference's GSPMD finds itself: the projections' weights
+(gathered over dp) and outputs, and attention's inputs.  Each is the
+identity on plain tensors, which is how the model runs outside the dry
+run (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -36,7 +39,9 @@ import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.config import ModelConfig
 
 NEG_INF = -1e30
@@ -159,8 +164,14 @@ def chunked_sdpa(q, k, v, *, q_pos, kv_pos, window: int = 0, prefix=0,
     skip.
 
     q (B,T,H,hd), k (B,S,K,hd), v (B,S,K,hdv); H = K * n_rep.
-    Returns (B,T,H,hdv).
+    Returns (B,T,H,hdv).  DTensor inputs run on their local shards
+    (``_on_shards``).
     """
+    if isinstance(q, DTensor):
+        return _on_shards(
+            chunked_sdpa, q, k, v, q_pos=q_pos, kv_pos=kv_pos, window=window,
+            prefix=prefix, has_window=has_window, n_rep=n_rep,
+            q_block=q_block, kv_block=kv_block, block_skip=block_skip)
     B, T, H, hd = q.shape
     S, K = k.shape[1], k.shape[2]
     hdv = v.shape[-1]
@@ -233,6 +244,24 @@ def chunked_sdpa(q, k, v, *, q_pos, kv_pos, window: int = 0, prefix=0,
     return out.reshape(B, Tp, H, hdv)[:, :T]
 
 
+def _on_shards(fn, q, k, v, *args, **kw):
+    """Attention `fn` (``chunked_sdpa``, ``_sdpa``) of DTensors: attention
+    is local to each batch and kv-head shard, so q, k and v are laid out
+    by batch over dp and by head over tp (where the kv heads divide it),
+    each rank runs `fn` on its own shards, with no collective, and the
+    output takes q's placements (a replicated DTensor mask is read
+    whole)."""
+    heads = shd.heads_axis(k.shape[2])
+    q, k, v = (shd.constrain(t, "dp", None, heads, None) for t in (q, k, v))
+    args = [a.full_tensor() if isinstance(a, DTensor) else a for a in args]
+    out = fn(q.to_local(), k.to_local(), v.to_local(), *args, **kw)
+    shape = (*q.shape[:3], v.shape[-1])
+    stride = (shape[1] * shape[2] * shape[3], shape[2] * shape[3],
+              shape[3], 1)
+    return DTensor.from_local(out, q.device_mesh, q.placements,
+                              run_check=False, shape=shape, stride=stride)
+
+
 # ---------------------------------------------------------------------------
 # GQA attention (covers MHA kv=H and MQA kv=1)
 # ---------------------------------------------------------------------------
@@ -268,15 +297,24 @@ def gqa_init(p: GQA, gen: torch.Generator) -> None:
             b.zero_()
 
 
-def _proj(x, w):
-    """einsum("btd,dhk->bthk") as one matmul."""
+def _proj(x, w, heads=None):
+    """einsum("btd,dhk->bthk") as one matmul.  `heads` ("tp" or None):
+    where a DTensor's head dim lies after the product (a no-op on plain
+    tensors)."""
     d = w.shape[0]
-    return torch.matmul(x, w.to(x.dtype).reshape(d, -1)).unflatten(
-        -1, w.shape[1:])
+    # a DTensor weight is gathered over dp (FSDP), so that its gradient
+    # comes back in the layout the unflattened weight can take
+    w2 = shd.constrain(w.to(x.dtype).reshape(d, -1), None, heads)
+    y = shd.constrain(torch.matmul(x, w2), "dp", None, heads)
+    # after the view too: the backward's gradient meets it in this layout
+    return shd.constrain(y.unflatten(-1, w.shape[1:]), "dp", None, heads,
+                         *(None,) * (w.dim() - 2))
 
 
 def _qkv(p, x, cfg: ModelConfig, positions):
-    q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+    # by kv head: the query heads are grouped by kv head in chunked_sdpa
+    heads = shd.heads_axis(cfg.n_kv_heads)
+    q, k, v = (_proj(x, w, heads) for w in (p.wq, p.wk, p.wv))
     if p.qkv_bias:
         q = q + p.bq.to(x.dtype)
         k = k + p.bk.to(x.dtype)
@@ -287,13 +325,23 @@ def _qkv(p, x, cfg: ModelConfig, positions):
 
 def _out(out, wo, dt):
     """einsum("bthk,hkd->btd") as one matmul."""
-    return torch.matmul(out.flatten(-2), wo.to(dt).reshape(-1, wo.shape[-1]))
+    heads = shd.heads_axis(out.shape[2])
+    out = shd.constrain(out, "dp", None, heads, None)
+    # after the view too: the backward's gradient meets it in this layout
+    flat = shd.constrain(out.flatten(-2), "dp", None, heads)
+    return torch.matmul(flat, wo.to(dt).reshape(-1, wo.shape[-1]))
 
 
 def _sdpa(q, k, v, mask, n_rep):
-    """q (B,T,H,hd), k (B,S,K,hd), v (B,S,K,hdv); mask (T,S)/(B,T,S)."""
+    """q (B,T,H,hd), k (B,S,K,hd), v (B,S,K,hdv); mask (T,S)/(B,T,S).
+    DTensors whose kv heads shard over tp run on their local shards
+    (``_on_shards``)."""
+    if isinstance(q, DTensor) and shd.heads_axis(k.shape[2]):
+        return _on_shards(_sdpa, q, k, v, mask, n_rep)
     B, T, H, hd = q.shape
     hdv = v.shape[-1]
+    # grouped by kv head, as below
+    q = shd.constrain(q, "dp", None, shd.heads_axis(k.shape[2]), None)
     q = q.reshape(B, T, k.shape[2], n_rep, hd)
     scores = torch.einsum("btkrh,bskh->bkrts", q, k) / (hd ** 0.5)
     scores = scores.to(torch.float32)
@@ -316,6 +364,26 @@ def gqa_apply(p, x, *, cfg: ModelConfig, positions, window: int = 0,
     return _out(out, p.wo, x.dtype), (k, v)
 
 
+def write_slots(cache, dim: int, slots, new) -> None:
+    """``cache.index_copy_(dim, slots, new)``.  A DTensor cache (the dry
+    run's) is written shard by shard: `dim` (the sequence) is never
+    sharded, so each rank writes its own slice of `new`, laid out as the
+    cache (no DTensor sharding rule for ``index_copy_`` is needed)."""
+    if isinstance(cache, DTensor):
+        if isinstance(new, DTensor):
+            new = new.redistribute(cache.device_mesh, cache.placements)
+        else:
+            new = DTensor.from_local(new, cache.device_mesh,
+                                     [Replicate()] * cache.device_mesh.ndim,
+                                     run_check=False).redistribute(
+                cache.device_mesh, cache.placements)
+        if isinstance(slots, DTensor):
+            slots = slots.full_tensor()
+        cache.to_local().index_copy_(dim, slots, new.to_local())
+        return
+    cache.index_copy_(dim, slots, new)
+
+
 def _clamped_slot(pos, S: int):
     """The slot ``dynamic_update_slice`` writes a one-token update at:
     the start clamped so that the update fits, S - 1 at pos >= S."""
@@ -332,10 +400,10 @@ def gqa_decode(p, x, cache, *, cfg: ModelConfig, pos, window: int,
     # a full-attention write at pos >= S lands in slot S - 1
     slot = (torch.remainder(pos, S).reshape(1).to(torch.int64) if window > 0
             else _clamped_slot(pos, S))
-    cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+    write_slots(cache["k"], 1, slot, k.to(cache["k"].dtype))
+    write_slots(cache["v"], 1, slot, v.to(cache["v"].dtype))
     pos_map = cache["pos_map"]
-    pos_map.index_copy_(0, slot, pos.reshape(1).to(pos_map.dtype))
+    write_slots(pos_map, 0, slot, pos.reshape(1).to(pos_map.dtype))
     occupied = (pos_map >= 0) & (pos_map <= pos)
     valid = occupied
     if window:
@@ -439,10 +507,11 @@ def _mla_write(p, x, cache, cfg: ModelConfig, pos):
     c_kv_new, k_rope_new = _mla_latents(p, x, cfg)
     k_rope_new = _rope_shared_key(k_rope_new, cfg, pos.reshape(1))
     slot = _clamped_slot(pos, cache["ckv"].shape[1])
-    cache["ckv"].index_copy_(1, slot, c_kv_new.to(cache["ckv"].dtype))
-    cache["krope"].index_copy_(1, slot, k_rope_new.to(cache["krope"].dtype))
+    write_slots(cache["ckv"], 1, slot, c_kv_new.to(cache["ckv"].dtype))
+    write_slots(cache["krope"], 1, slot,
+                k_rope_new.to(cache["krope"].dtype))
     pm = cache["pos_map"]
-    pm.index_copy_(0, slot, pos.reshape(1).to(pm.dtype))
+    write_slots(pm, 0, slot, pos.reshape(1).to(pm.dtype))
     return _mla_q(p, x, cfg, pos.reshape(1))
 
 
@@ -459,6 +528,7 @@ def mla_decode(p, x, cache, *, cfg: ModelConfig, pos):
     0-d int tensor.  Returns (y (B,1,d), cache)."""
     dt = x.dtype
     q = _mla_write(p, x, cache, cfg, pos)
+    q = shd.constrain(q, "dp", None, shd.heads_axis(cfg.n_heads), None)
     ckv, krope, pos_map = cache["ckv"], cache["krope"], cache["pos_map"]
     q_nope, q_rope = q[..., : cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
     q_abs = torch.einsum("bthn,rhn->bthr", q_nope, p.wk_b.to(dt))
@@ -628,7 +698,17 @@ def moe_apply(p, x, *, cfg: ModelConfig):
     xk = torch.repeat_interleave(x, slot_e.shape[2], dim=1)
     buf = torch.zeros((B, ES, cap + 1, d), dtype=x.dtype, device=x.device)
     buf = buf.index_put((b_idx, e_flat, p_drop), xk)[:, :, :cap]
+    # expert-parallel dispatch: buf's slot dim follows the expert-weight
+    # sharding (EP when ES >= 16), a token all-to-all in place of the
+    # expert weights' FSDP gathers
+    ep = ES >= 16
+    if ep:
+        buf = shd.constrain(buf, "dp", "tp", None, None)
     h = _experts(p, buf)
+    if ep:
+        # the capacity-bounded expert outputs gathered, so that the
+        # combine below is local
+        h = shd.constrain(h, "dp", None, None, None)
     got = h[b_idx, e_flat, torch.clamp(pos.reshape(B, n), 0, cap - 1)]
     got = got * (slot_p.reshape(B, n) * keep_flat.to(x.dtype))[..., None]
     out = got.reshape(B, T, -1, d).sum(dim=2)
@@ -650,5 +730,5 @@ __all__ = [
     "gqa_init", "gqa_apply", "gqa_decode", "gqa_empty_cache", "MLA",
     "mla_init", "mla_apply", "mla_decode", "mla_decode_naive",
     "mla_empty_cache", "FFN", "ffn_init", "ffn_apply", "MoE", "moe_init",
-    "top_k", "moe_route", "moe_apply",
+    "top_k", "moe_route", "moe_apply", "write_slots",
 ]

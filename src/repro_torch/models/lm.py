@@ -32,9 +32,10 @@ each layer in the backward (``torch.utils.checkpoint``).
 Every layer window is a Python int, so ``chunked_sdpa`` skips the fully
 masked blocks of hymba's sliding-window layers too, where the reference
 traces mixed windows and visits every block (the skipped blocks add
-exactly nothing).  ``shd.constrain`` is not called: the model runs on
-plain tensors, for which ``distributed.sharding.constrain`` is the
-identity.
+exactly nothing).  ``shd.constrain`` sits where the reference's does,
+on the residual stream of every layer and on the loss's logits; on
+plain tensors it is the identity, and only the dry run's DTensors are
+redistributed.
 
 The frontends are stubs, as in the reference: paligemma (``family ==
 "vlm"``) takes ``n_prefix`` precomputed patch embeddings ahead of its
@@ -53,9 +54,11 @@ from typing import Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.tree import leaves_with_keys, nest
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
@@ -142,13 +145,27 @@ def layer_flags(cfg: ModelConfig):
     return w
 
 
+def _whole_seq(t):
+    """A block's normed input or output with its sequence whole.  Under
+    shard_seq (Megatron sequence parallelism) a DTensor residual is
+    sharded over the sequence, and the matmuls take it gathered, as in
+    Megatron; on the output too, so that the backward's gradients meet
+    the matmuls in that layout (the identity on plain tensors, and a
+    no-op redistribution without shard_seq)."""
+    return shd.constrain(t, "dp", None, None)
+
+
+def _norm_in(p, x, eps):
+    return _whole_seq(L.rms_norm(p, x, eps))
+
+
 # ---------------------------------------------------------------------------
 # one layer, prefill form
 # ---------------------------------------------------------------------------
 
 def _attn_block(p, x, cfg: ModelConfig, positions, window: int):
     """-> (out, (k, v)) for GQA, (out, (c_kv, k_rope)) for MLA."""
-    h = L.rms_norm(p.ln_attn, x, cfg.norm_eps)
+    h = _norm_in(p.ln_attn, x, cfg.norm_eps)
     if cfg.attn_kind == "mla":
         return L.mla_apply(p.attn, h, cfg=cfg, positions=positions,
                            prefix=cfg.n_prefix)
@@ -161,14 +178,14 @@ def _mlp_block(p, x, cfg: ModelConfig, a_out=None):
     """The residual add of the attention's output `a_out` (if any) and the
     FFN or MoE block after it -> (x', the MoE's aux loss or None)."""
     if a_out is not None:
-        x = x + a_out
+        x = x + _whole_seq(a_out)
     if not cfg.d_ff:
         return x, None
-    h = L.rms_norm(p.ln_mlp, x, cfg.norm_eps)
+    h = _norm_in(p.ln_mlp, x, cfg.norm_eps)
     if cfg.n_experts:
         m_out, aux = L.moe_apply(p.mlp, h, cfg=cfg)
-        return x + m_out, aux
-    return x + L.ffn_apply(p.mlp, h), None
+        return x + _whole_seq(m_out), aux
+    return x + _whole_seq(L.ffn_apply(p.mlp, h)), None
 
 
 def _ssm_branch(p, h, cfg: ModelConfig, valid_len, with_cache: bool):
@@ -187,7 +204,7 @@ def _mixer(p, x, cfg: ModelConfig, positions, window: int, valid_len=None,
     attention and SSD on the same normed input, normalises each branch's
     output and averages them."""
     if cfg.family == "hybrid":
-        h = L.rms_norm(p.ln_attn, x, cfg.norm_eps)
+        h = _norm_in(p.ln_attn, x, cfg.norm_eps)
         a_out, kv = L.gqa_apply(p.attn, h, cfg=cfg, positions=positions,
                                 window=window, prefix=cfg.n_prefix,
                                 has_window=bool(cfg.sliding_window))
@@ -199,7 +216,7 @@ def _mixer(p, x, cfg: ModelConfig, positions, window: int, valid_len=None,
         a_out, kv = _attn_block(p, x, cfg, positions, window)
         return a_out, kv, None
     if cfg.ssm_state:
-        h = L.rms_norm(p.ln_ssm, x, cfg.norm_eps)
+        h = _norm_in(p.ln_ssm, x, cfg.norm_eps)
         s_out, sc = _ssm_branch(p, h, cfg, valid_len, with_cache)
         return s_out, None, sc
     return None, None, None
@@ -233,7 +250,14 @@ def embed_inputs(params: LM, cfg: ModelConfig, tokens=None,
     if extra_embeds is not None:
         parts.append(extra_embeds.to(dt))
     if tokens is not None:
-        parts.append(params.embed.to(dt)[tokens])
+        table = params.embed.to(dt)
+        if isinstance(table, DTensor):
+            # gathered (FSDP), and looked up by the embedding op, whose
+            # sharding rules DTensor has in every version
+            table = shd.constrain(table, None, None)
+            parts.append(torch.nn.functional.embedding(tokens, table))
+        else:
+            parts.append(table[tokens])
     x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     if cfg.family == "vlm":
         x = x * L._weak_scalar(cfg.d_model ** 0.5, dt)
@@ -259,6 +283,9 @@ def forward(params: LM, cfg: ModelConfig, tokens=None, extra_embeds=None,
         positions = torch.arange(T, dtype=torch.int32, device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp, w in zip(params.layers, layer_flags(cfg)):
+            # residual stream: batch over dp; sequence over tp when
+            # shard_seq (Megatron-style sequence parallelism)
+            x = shd.constrain(x, "dp", "seq", None)
             kw = dict(cfg=cfg, positions=positions, window=int(w),
                       valid_len=valid_len)
             if remat:
@@ -269,7 +296,7 @@ def forward(params: LM, cfg: ModelConfig, tokens=None, extra_embeds=None,
             else:
                 x, a = layer_apply(lp, x, **kw)
             aux = aux + a
-        x = L.rms_norm(params.ln_f, x, cfg.norm_eps)
+        x = _norm_in(params.ln_f, x, cfg.norm_eps)
         return unembed(params, cfg, x), aux
 
 
@@ -281,6 +308,7 @@ def lm_loss(params: LM, cfg: ModelConfig, batch):
     "aux"})."""
     logits, aux = forward(params, cfg, batch.get("tokens"),
                           batch.get("embeds"))
+    logits = shd.constrain(logits, "dp", None, "tp")   # vocab-sharded CE
     labels = batch["labels"].to(torch.int64)
     logits = logits[:, -labels.shape[1]:]
     mask = labels != -100
@@ -460,8 +488,10 @@ def prefill(params: LM, cfg: ModelConfig, tokens=None, extra_embeds=None,
         dev = x.device
         positions = torch.arange(T, dtype=torch.int32, device=dev)
         windows = [int(w) for w in layer_flags(cfg)]
-        cache = empty_cache(cfg, B, s_max, stacked=not uses_layer_loop(cfg),
-                            device=dev)
+        stacked = not uses_layer_loop(cfg)
+        cache = empty_cache(cfg, B, s_max, stacked=stacked, device=dev)
+        if isinstance(x, DTensor):
+            cache = shd.place_cache(cache, stacked)
         for i, lp in enumerate(params.layers):
             a_out, kv, sc = _mixer(lp, x, cfg, positions, windows[i],
                                    with_cache=True)
@@ -488,9 +518,9 @@ def _kv_to_cache(c, k, v, T: int, window: int, dt) -> None:
         # keep the trailing `ring` positions, placed at their ring slots
         keep = torch.arange(T - ring, T, dtype=torch.int32, device=dev)
         slots = (keep % ring).to(torch.int64)
-        c["k"].index_copy_(1, slots, k[:, -ring:].to(dt))
-        c["v"].index_copy_(1, slots, v[:, -ring:].to(dt))
-        c["pos_map"].index_copy_(0, slots, keep)
+        L.write_slots(c["k"], 1, slots, k[:, -ring:].to(dt))
+        L.write_slots(c["v"], 1, slots, v[:, -ring:].to(dt))
+        L.write_slots(c["pos_map"], 0, slots, keep)
     else:
         c["k"][:, :T] = k.to(dt)
         c["v"][:, :T] = v.to(dt)

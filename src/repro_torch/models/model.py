@@ -8,8 +8,9 @@ The model runs on the CUDA device unless the caller passes
 ``device="cpu"``; without a GPU a CUDA device raises.  Its parameters
 never require grad, so serving builds no graph; training binds views of
 the reference-layout tree that do (``lm.bind_params``).
-``shape_params`` gives the parameter tree's shapes on "meta"; the
-reference's dry-run stand-in ``input_specs`` comes with the dry run.
+``shape_params`` gives the parameter tree's shapes on "meta", and
+``input_specs`` a cell's inputs there (the dry run's, as the reference's
+``ShapeDtypeStruct`` trees are its).
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import torch
 
 from repro_torch.core.chain import resolve_device
 from repro_torch.models import lm
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import SHAPES, ModelConfig, runnable_shapes
 
 # What the port does not have yet, and where the ROADMAP queues it:
 # (test of a config, what it needs, the item).  Every family of the
@@ -83,6 +84,54 @@ class Model:
                               stacked=not lm.uses_layer_loop(self.cfg),
                               device=resolve_device(device))
 
+    # ---- assigned input shapes --------------------------------------------
+    def input_specs(self, shape_name: str) -> Dict:
+        """"meta" tensors of one assigned (arch x shape) cell's inputs, the
+        reference's shapes and dtypes:
+
+        train  -> {tokens/embeds, labels}
+        prefill-> {tokens/embeds}
+        decode -> {token/embed, pos, cache}  (one new token, seq_len KV)
+        """
+        cfg = self.cfg
+        if shape_name not in SHAPES:
+            raise KeyError(shape_name)
+        if shape_name not in runnable_shapes(cfg):
+            raise ValueError(
+                f"{cfg.name} skips {shape_name} (full attention; "
+                "DESIGN.md Sec. 5)")
+        sh = SHAPES[shape_name]
+        B, S = sh["global_batch"], sh["seq_len"]
+        if sh["kind"] == "train":
+            specs = self._prompt_specs(B, S)
+            n_text = S - (cfg.n_prefix if cfg.frontend == "patches" else 0)
+            specs["labels"] = _meta((B, n_text), torch.int32)
+            return specs
+        if sh["kind"] == "prefill":
+            return self._prompt_specs(B, S)
+        # decode: one new token with a seq_len-deep cache
+        batch: Dict = {"cache": self.empty_cache(B, S, device="meta"),
+                       "pos": _meta((), torch.int32)}
+        if cfg.frontend == "frames":
+            batch["embed"] = _meta((B, 1, cfg.d_model), self._dtype)
+        else:
+            batch["token"] = _meta((B, 1), torch.int32)
+        return batch
+
+    @property
+    def _dtype(self) -> torch.dtype:
+        return getattr(torch, self.cfg.dtype)
+
+    def _prompt_specs(self, B, S) -> Dict:
+        cfg = self.cfg
+        if cfg.frontend == "frames":       # musicgen: EnCodec frame embeds
+            return {"embeds": _meta((B, S, cfg.d_model), self._dtype)}
+        if cfg.frontend == "patches":      # paligemma: SigLIP patch embeds
+            return {"embeds": _meta((B, cfg.n_prefix, cfg.d_model),
+                                    self._dtype),
+                    "tokens": _meta((B, S - cfg.n_prefix), torch.int32)}
+        return {"tokens": _meta((B, S), torch.int32)}
+
     # ---- concrete sample batches (smoke tests / examples) -----------------
     def sample_batch(self, generator: torch.Generator, batch_size: int,
                      seq_len: int) -> Dict[str, torch.Tensor]:
@@ -107,6 +156,10 @@ class Model:
             batch["tokens"] = torch.randint(0, V, (B, n_text), **kw)
         batch["labels"] = torch.randint(0, V, (B, n_text), **kw)
         return batch
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def build(arch_id: str, smoke: bool = False) -> Model:

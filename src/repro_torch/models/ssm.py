@@ -38,7 +38,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (RMSNorm, _weight, cdtype,
                                        dense_init_, rms_norm)
@@ -113,12 +115,25 @@ def _split_proj(p, x, cfg: ModelConfig):
 
 
 def _causal_conv(p, xBC, w: int):
-    """Depthwise causal conv via w static shifts."""
+    """Depthwise causal conv via w static shifts.  A DTensor input (the
+    dry run's) runs on each rank's batch shard with its channels whole:
+    torch 2.11's DTensor cannot plan the pad."""
+    if isinstance(xBC, DTensor):
+        x = shd.constrain(xBC, "dp", None, None)
+        out = _conv_shifts(x.to_local(), p.conv_w.full_tensor(),
+                           p.conv_b.full_tensor(), w)
+        return DTensor.from_local(out, x.device_mesh, x.placements,
+                                  run_check=False, shape=x.shape,
+                                  stride=x.stride())
+    return _conv_shifts(xBC, p.conv_w, p.conv_b, w)
+
+
+def _conv_shifts(xBC, conv_w, conv_b, w: int):
     pad = F.pad(xBC, (0, 0, w - 1, 0))
     T = xBC.shape[1]
-    out = sum(pad[:, i: i + T, :] * p.conv_w[i].to(xBC.dtype)
+    out = sum(pad[:, i: i + T, :] * conv_w[i].to(xBC.dtype)
               for i in range(w))
-    return _silu_xla(out + p.conv_b.to(xBC.dtype))
+    return _silu_xla(out + conv_b.to(xBC.dtype))
 
 
 def _segsum_decay(a_cum):
@@ -144,25 +159,28 @@ def _gate(p, y, z, cfg: ModelConfig):
                     cfg.norm_eps).to(y.dtype)
 
 
-def _ssd(p, x, cfg: ModelConfig, valid_len=None, init_state=None):
-    """``ssd_apply`` -> (y, final state h, the pre-conv xBC projection)."""
-    B_, T, _ = x.shape
-    din, N, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    hd, Q = cfg.ssm_head_dim, cfg.ssm_chunk
-    dt_ = x.dtype
+def _scan(xBC, dt_raw, A_log, D, dt_bias, cfg: ModelConfig, valid_len=None,
+          init_state=None, heads=slice(None)):
+    """The SSD on the conv's output xBC (B, T, din + 2N) and dt_raw (B, T,
+    nh'): the chunked dual form and the recurrence over chunks -> (y (B,
+    T, nh' hd) in xBC's dtype, final state (B, nh', hd, N) f32), for the
+    heads `heads` of xBC's din (nh' of them; A_log, D, dt_bias theirs)."""
+    B_, T, _ = xBC.shape
+    din, N, hd, Q = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim, \
+        cfg.ssm_chunk
+    nh = dt_raw.shape[-1]
+    dt_ = xBC.dtype
     f32 = torch.float32
 
-    z, xBC_raw, dt_raw = _split_proj(p, x, cfg)
-    xBC = _causal_conv(p, xBC_raw, cfg.conv_width)
-    xs = xBC[..., :din].reshape(B_, T, nh, hd)
+    xs = xBC[..., :din].reshape(B_, T, -1, hd)[:, :, heads]
     Bm = xBC[..., din: din + N]
     Cm = xBC[..., din + N:]
 
-    dt = F.softplus(dt_raw.to(f32) + p.dt_bias)        # (B,T,nh) f32
+    dt = F.softplus(dt_raw.to(f32) + dt_bias)          # (B,T,nh) f32
     if valid_len is not None:
-        tpos = torch.arange(T, device=x.device)
+        tpos = torch.arange(T, device=xBC.device)
         dt = torch.where(tpos[None, :, None] < valid_len, dt, 0.0)
-    A = -torch.exp(p.A_log)                            # (nh,)
+    A = -torch.exp(A_log)                              # (nh,)
     a = dt * A                                         # log-decay, <= 0
 
     # pad T to a chunk multiple (causal: pads can't affect real outputs;
@@ -195,7 +213,7 @@ def _ssd(p, x, cfg: ModelConfig, valid_len=None, init_state=None):
 
     # ---- inter-chunk recurrence (the only sequential op) ----------------
     chunk_decay = torch.exp(a_cum[:, :, -1, :])        # (B,nc,nh)
-    h = (torch.zeros((B_, nh, hd, N), dtype=f32, device=x.device)
+    h = (torch.zeros((B_, nh, hd, N), dtype=f32, device=xBC.device)
          if init_state is None else init_state.to(f32))
     h_prevs = []
     for c in range(nc):
@@ -209,9 +227,56 @@ def _ssd(p, x, cfg: ModelConfig, valid_len=None, init_state=None):
                          h_prev) * in_decay[..., None]
 
     y = (y_diag.to(f32) + y_off).reshape(B_, Tp, nh, hd)[:, :T]
-    y = y + xs[:, :T].to(f32) * p.D[None, None, :, None]
-    y = y.reshape(B_, T, din).to(dt_)
+    y = y + xs[:, :T].to(f32) * D[None, None, :, None]
+    return y.reshape(B_, T, nh * hd).to(dt_), h
 
+
+
+def _scan_on_shards(p, xBC, dt_raw, cfg: ModelConfig, valid_len,
+                    init_state):
+    """``_scan`` of DTensors (the dry run's): the SSD is local to each
+    batch and head shard, so xBC (channels whole) and dt_raw are laid out
+    by batch over dp and by head over tp (where the heads divide it), and
+    each rank scans its own heads, with no collective."""
+    nh = cfg.ssm_heads
+    heads = shd.heads_axis(nh)
+    xBC = shd.constrain(xBC, "dp", None, None)
+    dt_raw = shd.constrain(dt_raw, "dp", None, heads)
+    mesh = dt_raw.device_mesh
+    nh_l = dt_raw.to_local().shape[-1]
+    first = 0
+    if heads:
+        first = mesh.get_local_rank(shd.active_axes()[1]) * nh_l
+    params = [shd.constrain(t, heads).to_local()
+              for t in (p.A_log, p.D, p.dt_bias)]
+    if init_state is not None:
+        init_state = shd.constrain(init_state, "dp", heads, None,
+                                   None).to_local()
+    y, h = _scan(xBC.to_local(), dt_raw.to_local(), *params, cfg, valid_len,
+                 init_state, heads=slice(first, first + nh_l))
+    B_, T, _ = xBC.shape
+    y = DTensor.from_local(y, mesh, dt_raw.placements, run_check=False,
+                           shape=(B_, T, cfg.d_inner),
+                           stride=(T * cfg.d_inner, cfg.d_inner, 1))
+    h_pl = shd.layout((B_, nh, cfg.ssm_head_dim, cfg.ssm_state), "dp",
+                      heads, None, None)
+    h_shape = (B_, nh, cfg.ssm_head_dim, cfg.ssm_state)
+    h = DTensor.from_local(h, mesh, h_pl, run_check=False, shape=h_shape,
+                           stride=torch.empty(h_shape,
+                                              device="meta").stride())
+    return y, h
+
+
+def _ssd(p, x, cfg: ModelConfig, valid_len=None, init_state=None):
+    """``ssd_apply`` -> (y, final state h, the pre-conv xBC projection)."""
+    dt_ = x.dtype
+    z, xBC_raw, dt_raw = _split_proj(p, x, cfg)
+    xBC = _causal_conv(p, xBC_raw, cfg.conv_width)
+    if isinstance(xBC, DTensor):
+        y, h = _scan_on_shards(p, xBC, dt_raw, cfg, valid_len, init_state)
+    else:
+        y, h = _scan(xBC, dt_raw, p.A_log, p.D, p.dt_bias, cfg, valid_len,
+                     init_state)
     y = _gate(p, y, z, cfg)
     out = torch.matmul(y, p.out_proj.to(dt_))
     return out, h, xBC_raw
@@ -253,7 +318,11 @@ def ssd_decode(p, x, cache, *, cfg: ModelConfig):
 
     h = cache["h"] * a[:, :, None, None] + torch.einsum(
         "bn,bhd->bhdn", Bm, xs * dt[..., None])                  # (B,nh,hd,N)
+    # the dry run's layout of the heads (identities on plain tensors)
+    heads = shd.heads_axis(nh)
+    h = shd.constrain(h, "dp", heads, None, None)
     y = torch.einsum("bn,bhdn->bhd", Cm, h) + xs * p.D[None, :, None]
+    y = shd.constrain(y, "dp", heads, None)
     y = y.reshape(B_, 1, din).to(dt_)
     y = _gate(p, y, z, cfg)
     out = torch.matmul(y, p.out_proj.to(dt_))
@@ -280,7 +349,8 @@ def ssd_prefill_cache(p, x, *, cfg: ModelConfig, valid_len=None):
     tail would be short)."""
     out, h, xBC = _ssd(p, x, cfg, valid_len)
     w = cfg.conv_width
-    xBC = F.pad(xBC, (0, 0, max(0, w - 1 - xBC.shape[1]), 0))
+    if xBC.shape[1] < w - 1:
+        xBC = F.pad(xBC, (0, 0, w - 1 - xBC.shape[1], 0))
     conv_tail = xBC[:, -(w - 1):, :].to(torch.float32)
     return out, {"conv": conv_tail, "h": h}
 

@@ -117,6 +117,22 @@ def test_files_load_both_ways(steps, tmp_path):
     repro_torch.verify_nck(jp)
 
 
+def test_writer_stamps_checksum_frame(steps, tmp_path):
+    """The NCK4 frame's record keys in the port's file, as both readers
+    see them: "crc32" on every variable, "block_crc32" on the blocked
+    ones (the anchor and the index tables), equal to the reference's."""
+    case, want, got = steps
+    jp, tp = str(tmp_path / "jax.nck"), str(tmp_path / "port.nck")
+    JArchive.write(jp, "v", want)
+    repro_torch.TemporalArchive.write(tp, "v", got)
+    tr, jr = repro_torch.NCKReader(tp), JReader(jp)
+    assert tr.variables == jr.variables
+    assert all("crc32" in rec for rec in tr.variables.values())
+    blocked = [n for n, rec in tr.variables.items() if "block_crc32" in rec]
+    assert any(n.endswith("_anchor") for n in blocked), blocked
+    assert any(n.endswith("_index_table") for n in blocked), blocked
+
+
 def test_read_range_matches_reference(steps, tmp_path):
     case, want, _ = steps
     path = str(tmp_path / "a.nck")

@@ -299,6 +299,91 @@ def test_constrain(alone):
     assert shd.constrain(d, "dp") is d
 
 
+_SITES_WORKER = """
+import dataclasses, json, sys, torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch.configs import get_smoke_config
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch import dryrun
+from repro_torch.models import lm
+from repro_torch.models.model import Model
+
+recs = []
+orig = shd.constrain
+
+def spy(x, *logical):
+    y = orig(x, *logical)
+    site = sys._getframe(1).f_code.co_name
+    if site in ("forward", "lm_loss", "moe_apply"):
+        recs.append(dict(
+            site=site, logical=list(logical), shape=list(x.shape),
+            dtensor=isinstance(x, DTensor), same=y is x,
+            placements=([f"S{p.dim}" if p.is_shard() else
+                         "R" if p.is_replicate() else str(p)
+                         for p in y.placements]
+                        if isinstance(y, DTensor) else None)))
+    return y
+
+shd.constrain = spy
+mesh, dp = dryrun.cell_mesh("single")
+shd.activate(mesh, dp, "model")
+# 8 experts of 2 slots fill the 16-way model axis: expert parallelism
+model = Model(dataclasses.replace(get_smoke_config("mixtral-8x7b"),
+                                  n_experts=8))
+fn, args = dryrun.build_cell(model, "train_4k", mesh)
+with implicit_replication():
+    fn(*args)
+params = model.init(0, device="cpu")
+batch = model.sample_batch(torch.Generator().manual_seed(0), 2, 32)
+lm.lm_loss(params, model.cfg, batch)
+print(json.dumps(recs))
+"""
+
+
+def test_constrain_call_sites_redistribute_dtensors():
+    """The reference's four call sites (the residual stream in
+    ``forward``, the loss's logits, the MoE's dispatch buffer and expert
+    outputs) on the dry run's fake (16, 16) mesh: a DTensor leaves each
+    in the placements of the reference's spec there; with the same mesh
+    active, a plain tensor is returned as it is (smoke mixtral with 8
+    experts, whose 16 expert slots fill the model axis)."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", _SITES_WORKER], env=env,
+                         cwd=str(ROOT), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    recs = json.loads(out.stdout.strip().splitlines()[-1])
+    sizes = {"data": 16, "model": 16}
+    want_logical = {"forward": ["dp", "seq", None],
+                    "lm_loss": ["dp", None, "tp"],
+                    "moe_apply": [["dp", "tp", None, None],
+                                  ["dp", None, None, None]]}
+    seen = set()
+    for r in recs:
+        logical = r["logical"]
+        want = want_logical[r["site"]]
+        assert logical in (want if r["site"] == "moe_apply" else [want])
+        if not r["dtensor"]:
+            assert r["same"], r
+            continue
+        seen.add((r["site"], tuple(logical)))
+        resolved = tuple(None if ax == "seq" else ax for ax in logical)
+        spec = jshd.logical_to_spec(resolved, _stand_in(sizes), ("data",),
+                                    "model", shape=tuple(r["shape"]))
+        placements = []
+        for axis in ("data", "model"):
+            dims = [i for i, e in enumerate(spec)
+                    if e == axis or (isinstance(e, tuple) and axis in e)]
+            placements.append(f"S{dims[0]}" if dims else "R")
+        assert r["placements"] == placements, (r, tuple(spec))
+    assert seen == {("forward", ("dp", "seq", None)),
+                    ("lm_loss", ("dp", None, "tp")),
+                    ("moe_apply", ("dp", "tp", None, None)),
+                    ("moe_apply", ("dp", None, None, None))}
+    assert any(not r["dtensor"] for r in recs)
+
+
 # ------------------------------------------------------------------ meshes
 
 def test_make_production_mesh_shapes(monkeypatch):
