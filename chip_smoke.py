@@ -124,7 +124,15 @@ Phases, each fatal on failure (exit code 1, no result line):
               E) and zlib; payloads byte-equal to device="cpu",
               decompressed arrays equal and within their bounds; each
               compression ratio beside NUMARCK's, ms on the card.
-  13. kernels each kernel against its plain version on the card, exactly,
+  13. examples  the port's four examples (examples/torch_*.py: quickstart,
+              compress_simulation, serve_lm, train_restart), each a
+              process of its own at its default flags (the card), and
+              quickstart and compress_simulation once more with --device
+              cpu, all at once, their temporary files in directories of
+              this run; each must exit 0 (their own checks pass), and the
+              card's lines of those two must be the CPU's; one line a
+              script with its seconds and its last line.
+  14. kernels each kernel against its plain version on the card, exactly,
               at n = 42*360*240 (the CMIP step) and n = 2^26, with timings
               (median of 20 launches, CUDA events, after warm-up) beside
               the bound the card's memory and arithmetic rates set.  The
@@ -145,12 +153,14 @@ Phases, each fatal on failure (exit code 1, no result line):
               byte-identical to the host coder, both timed.  The card's
               clocks and temperature are logged before and after.
 
-  14. dryrun  the dry run (repro_torch.launch.dryrun) on a fake 256- and
+  15. dryrun  the dry run (repro_torch.launch.dryrun) on a fake 256- and
               512-rank fleet of CPU processes, no card: Llama-3.2-1B's
-              three shapes on both meshes (each must be OK), and one cell
-              each of MLA, MoE, SSM, hybrid, vlm and audio and the
-              compression cell on one pod, in DRYRUN_JOBS processes at
-              once, started at the lowest priority beside phase 13; one
+              three shapes on both meshes and mamba2-780m's train step
+              (its tied table, whose vocabulary does not divide the model
+              axis) on one pod (each must be OK), and one cell each of
+              MLA, MoE, SSM, hybrid, vlm and audio and the compression
+              cell on one pod, in DRYRUN_JOBS processes at once, started
+              at the lowest priority beside phase 14; one
               line a cell.  Beside them the train phase's step
               under the op counter (repro_torch.launch.cost_model): its
               counted FLOPs against flops_cell, and the measured step
@@ -2941,10 +2951,89 @@ def baselines_phase(torch, np, dev, data: dict, results: dict,
     return out
 
 
+EXAMPLES = ("torch_quickstart", "torch_compress_simulation", "torch_serve_lm",
+            "torch_train_restart")
+# these print no time and no random draw: the card's lines must be the
+# CPU's (--device cpu), which tests/test_torch_examples.py holds to the
+# JAX examples' line for line
+EXAMPLES_ON_CPU = ("torch_quickstart", "torch_compress_simulation")
+EXAMPLES_TIMEOUT = 240
+
+
+def examples_phase() -> dict:
+    """Run the port's examples as a user runs them: each
+    ``examples/<name>.py`` a process of its own at its default flags (the
+    card), and EXAMPLES_ON_CPU once more with ``--device cpu``, all at
+    once, each with TMPDIR in a directory of its own in this run (the
+    quickstart's archive and train_restart's checkpoints land there).
+    Fails unless each exits 0 and the card's lines equal the CPU's; logs
+    one line a script: its seconds on the card and its last line."""
+    runs = [(name, ()) for name in EXAMPLES] + [
+        (name, ("--device", "cpu")) for name in EXAMPLES_ON_CPU]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs, logs = {}, {}
+        t0 = time.perf_counter()
+        try:
+            for name, flags in runs:
+                key = (name, flags)
+                run_dir = Path(tmp) / f"{name}{'_cpu' if flags else ''}"
+                run_dir.mkdir()
+                logs[key] = open(run_dir / "out.log", "w+")
+                procs[key] = subprocess.Popen(
+                    [sys.executable, str(ROOT / "examples" / f"{name}.py"),
+                     *flags],
+                    env=dict(os.environ, PYTHONPATH=str(SRC),
+                             TMPDIR=str(run_dir)),
+                    stdout=logs[key], stderr=subprocess.STDOUT)
+            secs = {}
+            while len(secs) < len(procs):
+                for key, p in procs.items():
+                    if key not in secs and p.poll() is not None:
+                        secs[key] = time.perf_counter() - t0
+                if time.perf_counter() - t0 > EXAMPLES_TIMEOUT:
+                    raise AssertionError(
+                        f"examples: {sorted(set(procs) - set(secs))} still "
+                        f"running after {EXAMPLES_TIMEOUT} s")
+                time.sleep(0.05)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        text = {}
+        for key, p in procs.items():
+            logs[key].seek(0)
+            text[key] = logs[key].read()
+            logs[key].close()
+            if p.returncode:
+                raise AssertionError(f"examples/{key[0]}.py {key[1]} exit "
+                                     f"{p.returncode}: {text[key][-3000:]}")
+    for name in EXAMPLES_ON_CPU:
+        if text[(name, ())] != text[(name, ("--device", "cpu"))]:
+            raise AssertionError(
+                f"examples/{name}.py: the card's lines\n{text[(name, ())]}"
+                f"differ from the CPU's\n"
+                f"{text[(name, ('--device', 'cpu'))]}")
+    for name in EXAMPLES:
+        lines = text[(name, ())].strip().splitlines()
+        same = " (the CPU's lines)" if name in EXAMPLES_ON_CPU else ""
+        log(f"example {name}: exit 0 in {secs[(name, ())]:.1f} s, "
+            f"{len(lines)} lines{same}; last: {lines[-1]}")
+        out[name] = dict(s=secs[(name, ())], last=lines[-1])
+    log(f"examples: {len(EXAMPLES)} of {len(EXAMPLES)} exit 0 on the card, "
+        f"{len(EXAMPLES_ON_CPU)} equal to --device cpu, {wall:.1f} s for "
+        "all at once")
+    return out
+
+
 # The dry run's cells: (mesh, cells, the compression cell's meshes), one
 # process each, all at once (repro_torch.launch.dryrun.run_cell), split
 # so that each takes ~15 s of one core of the card's host (7 of its 8).
-# The Llama cells and those of tests/test_torch_dryrun.py must be OK.
+# The Llama cells and those of tests/test_torch_dryrun.py must be OK;
+# mamba2's train step (its tied table's backward, which torch 2.11 once
+# refused: lm.forward) rides with the one-cell decode job.
 DRYRUN_JOBS = (
     ("single", (("llama3.2-1b", "train_4k"), ("llama3.2-1b", "decode_32k")),
      ()),
@@ -2953,7 +3042,8 @@ DRYRUN_JOBS = (
      ()),
     ("multi", (("llama3.2-1b", "prefill_32k"),), ()),
     ("single", (("minicpm3-4b", "train_4k"),), ()),
-    ("single", (("mixtral-8x7b", "decode_32k"),), ()),
+    ("single", (("mixtral-8x7b", "decode_32k"), ("mamba2-780m", "train_4k")),
+     ()),
     ("single", (("mamba2-780m", "decode_32k"), ("hymba-1.5b", "long_500k"),
                 ("paligemma-3b", "decode_32k"),
                 ("musicgen-medium", "decode_32k")), ("single", "multi")),
@@ -2961,6 +3051,7 @@ DRYRUN_JOBS = (
 DRYRUN_MUST = {("llama3.2-1b", s, m) for m in ("single", "multi")
                for s in ("train_4k", "prefill_32k", "decode_32k")} | {
     ("mamba2-780m", "decode_32k", "single"),
+    ("mamba2-780m", "train_4k", "single"),
     ("numarck-pipeline", "n2e+09", "single"),
     ("numarck-pipeline", "n2e+09", "multi")}
 DRYRUN_TIMEOUT = 180
@@ -3297,8 +3388,12 @@ def run(torch, np) -> dict:
     mark("baselines")
     baselines_phase(torch, np, dev, data, results, launches)
 
-    # -- 13. each kernel against its plain version, timed ------------------
-    # (the dry run's CPU processes start beside it: phase 14)
+    # -- 13. the port's examples, as a user runs them ----------------------
+    mark("examples")
+    examples_phase()
+
+    # -- 14. each kernel against its plain version, timed ------------------
+    # (the dry run's CPU processes start beside it: phase 15)
     dry = dryrun_start()
     mark("kernels")
     log_clocks("before the kernel phase")
@@ -3485,7 +3580,7 @@ def run(torch, np) -> dict:
         del ids, valid_ids
     log_clocks("after the kernel phase")
 
-    # -- 14. the dry run on a fake fleet (CPU processes, no kernel) --------
+    # -- 15. the dry run on a fake fleet (CPU processes, no kernel) --------
     mark("dryrun")
     dryrun_phase(dry, trained["share_of_peak"])
     mark("end")

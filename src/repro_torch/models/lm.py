@@ -264,9 +264,14 @@ def embed_inputs(params: LM, cfg: ModelConfig, tokens=None,
     return x
 
 
-def unembed(params: LM, cfg: ModelConfig, x):
-    w = (params.embed.t() if cfg.tie_embeddings
-         else params.unembed).to(x.dtype)
+def unembed(params: LM, cfg: ModelConfig, x, table=None):
+    """f32 logits of `x`; a tied model reads `table` where the caller
+    passes a view of its token table (``forward``), else the table."""
+    if cfg.tie_embeddings:
+        w = (params.embed if table is None else table).t()
+    else:
+        w = params.unembed
+    w = w.to(x.dtype)
     return torch.matmul(x, w).to(torch.float32)
 
 
@@ -297,7 +302,16 @@ def forward(params: LM, cfg: ModelConfig, tokens=None, extra_embeds=None,
                 x, a = layer_apply(lp, x, **kw)
             aux = aux + a
         x = _norm_in(params.ln_f, x, cfg.norm_eps)
-        return unembed(params, cfg, x), aux
+        # A tied DTensor table reaches the unembedding through a
+        # redistribute of its own, as it reaches the lookup (gathered over
+        # dp, the vocabulary over tp: the layout DTensor's matmul picks).
+        # Each redistribute's backward returns its gradient in the table's
+        # own placements, so the two gradients add with no redistribute:
+        # torch 2.11's DTensor cannot plan their sum when one arrives
+        # Partial and the other sharded (Shard -> Partial).
+        table = (shd.constrain(params.embed, "tp!", None)
+                 if cfg.tie_embeddings else None)
+        return unembed(params, cfg, x, table), aux
 
 
 def lm_loss(params: LM, cfg: ModelConfig, batch):

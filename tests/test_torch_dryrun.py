@@ -301,14 +301,15 @@ def _cells_code(mesh, cells, compression):
 @pytest.fixture(scope="module")
 def cell_records():
     """Llama-3.2-1B's three shapes on both meshes, mamba2's decode and
-    the compression cell on one pod, in two processes at once."""
+    train step and the compression cell on one pod, in two processes at
+    once."""
     llama = [("llama3.2-1b", s) for s in ("train_4k", "prefill_32k",
                                           "decode_32k")]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     env.pop("XLA_FLAGS", None)
+    mamba2 = [("mamba2-780m", s) for s in ("decode_32k", "train_4k")]
     jobs = {
-        "single": _cells_code("single", llama + [("mamba2-780m",
-                                                  "decode_32k")], True),
+        "single": _cells_code("single", llama + mamba2, True),
         "multi": _cells_code("multi", llama, True)}
     procs = {k: subprocess.Popen([sys.executable, "-c", code], env=env,
                                  cwd=ROOT, stdout=subprocess.PIPE,
@@ -357,7 +358,8 @@ def test_cell_counts_scale_with_the_mesh(cell_records):
 
 
 def test_ssm_decode_cell_and_compression_cell(cell_records):
-    ssm = [r for r in cell_records if r["arch"] == "mamba2-780m"]
+    ssm = [r for r in cell_records if r["arch"] == "mamba2-780m"
+           and r["shape"] == "decode_32k"]
     assert len(ssm) == 1 and ssm[0]["status"] == "OK", ssm
     comp = [r for r in cell_records if r["arch"] == "numarck-pipeline"]
     assert {r["mesh"] for r in comp} == {"single", "multi"}
@@ -367,6 +369,85 @@ def test_ssm_decode_cell_and_compression_cell(cell_records):
         assert r["collectives"]["all-reduce"] == (1 << 16) * 4
         assert r["collectives"]["all-gather"] == 2 * 4 * r["shards"]
         assert r["bytes_per_device"] >= 2 * 4 * 2_000_000_000 // r["shards"]
+
+
+# mamba2-780m train_4k on one pod, counted a rank under torch 2.13.  The
+# FLOPs are those before the unembedding took a redistribute of its own of
+# the tied table; bytes and collective bytes moved by +0.009 % and
+# +0.066 % with it (PERF.md).
+MAMBA2_TRAIN = {"flops_per_device": 21621872001024.0,
+                "bytes_per_device": 6403070242816.0,
+                "collective_bytes_per_device": 175009243152.0}
+
+
+def test_ssm_train_cell_with_a_tied_table_is_ok(cell_records):
+    """mamba2's vocabulary (50,280) does not divide the model axis, so
+    its tied table shards only over dp; torch 2.11 failed this cell's
+    backward (``test_tied_table_gradients_arrive_in_its_layout``)."""
+    [rec] = [r for r in cell_records if r["arch"] == "mamba2-780m"
+             and r["shape"] == "train_4k"]
+    assert rec["status"] == "OK", rec.get("error")
+    assert rec["mesh"] == "single" and rec["chips"] == 256
+    assert {k: rec[k] for k in MAMBA2_TRAIN} == MAMBA2_TRAIN
+    assert rec["collectives"]["reduce-scatter"] > 0
+
+
+def test_tied_table_gradients_arrive_in_its_layout():
+    """Each use of a tied DTensor table (the lookup, the unembedding)
+    reaches it through a redistribute of its own, so every gradient that
+    reaches the table arrives in the table's own placements and their sum
+    redistributes nothing.  Left to the matmul, the unembedding's
+    gradient arrived as (Partial(sum), ...), and torch 2.11 planned the
+    sum through Shard(1) -> Partial(sum), which it refuses.  mamba2 at
+    one layer on one pod, at its vocabulary (dp only) and at 50,304
+    (dp and tp)."""
+    code = (
+        "import dataclasses, json, torch\n"
+        "from torch.distributed.tensor.experimental import "
+        "implicit_replication\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.distributed import sharding as shd\n"
+        "from repro_torch.launch import dryrun\n"
+        "from repro_torch.models import lm\n"
+        "from repro_torch.models.model import Model\n"
+        "mesh, dp = dryrun.cell_mesh('single')\n"
+        "for vocab in (50280, 50304):\n"
+        "    cfg = dataclasses.replace(get_config('mamba2-780m'), "
+        "n_layers=1, vocab_size=vocab)\n"
+        "    model = Model(cfg)\n"
+        "    shd.activate(mesh, dp, 'model')\n"
+        "    ps = model.shape_params()\n"
+        "    module = lm.bind_params(dryrun._distribute(ps, "
+        "shd.named_shardings(ps, cfg, mesh, dp, 'model'), mesh), cfg)\n"
+        "    table = module.embed\n"
+        "    tok = torch.empty((16, 64), dtype=torch.int32, "
+        "device='meta')\n"
+        "    b = {'tokens': tok, 'labels': tok}\n"
+        "    b = dryrun._distribute(b, shd.batch_specs(b, mesh, dp), mesh)\n"
+        "    with implicit_replication():\n"
+        "        loss, _ = model.loss(module, b)\n"
+        "    seen, todo, got = set(), [loss.grad_fn], []\n"
+        "    while todo:\n"
+        "        node = todo.pop()\n"
+        "        if node is None or node in seen:\n"
+        "            continue\n"
+        "        seen.add(node)\n"
+        "        for i, (nxt, _) in enumerate(node.next_functions):\n"
+        "            if getattr(nxt, 'variable', None) is table:\n"
+        "                node.register_hook(lambda gi, go, i=i, "
+        "n=node.name(): got.append([n, str(tuple(gi[i].placements))]))\n"
+        "            todo.append(nxt)\n"
+        "    with implicit_replication():\n"
+        "        torch.autograd.grad(loss, [table])\n"
+        "    shd.deactivate()\n"
+        "    print(json.dumps(dict(vocab=vocab, got=sorted(got), "
+        "table=str(tuple(table.placements)))))\n")
+    recs = _run_json(code)
+    assert [r["table"] for r in recs] == [
+        "(Shard(dim=1), Replicate())", "(Shard(dim=1), Shard(dim=0))"]
+    for r in recs:
+        assert len(r["got"]) == 2, r
+        assert all(p == r["table"] for _, p in r["got"]), r
 
 
 def test_cli_skips_and_reports_without_a_device():

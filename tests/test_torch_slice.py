@@ -330,6 +330,9 @@ def test_import_leaves_jax_and_repro_out():
 def test_no_jax_or_repro_import_in_the_port():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(examples) == 4, examples
+    files += examples
     assert len(files) > 20
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
