@@ -13,6 +13,9 @@ Both are bit-identical: reconstruction runs in the source precision on
 every path (``pipeline.reconstruction_dtype``).  torch holds float64
 natively, so unlike the reference the device chain takes f64 data too;
 residency never changes output.
+
+Telemetry: each advance is a ``chain.advance`` span; the device chain's
+host-to-device copies are ``sync.chain_*`` spans inside it.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import torch
 from repro_torch.core import pipeline as pipe
 from repro_torch.core.tree import map_with_keys
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import telemetry
 
 CHAIN_HOST = "host"
 CHAIN_DEVICE = "device"
@@ -120,9 +124,10 @@ class HostReferenceChain(ReferenceChain):
         self._state = np.array(np.asarray(arr), copy=True)
 
     def advance(self, dev: pipe.DeviceEncoded, curr) -> None:
-        self._state = pipe.reconstruct_from_indices(
-            self._state, dev.enc, dev.centers, self._state.dtype,
-            curr=np.asarray(curr))
+        with telemetry.span("chain.advance"):
+            self._state = pipe.reconstruct_from_indices(
+                self._state, dev.enc, dev.centers, self._state.dtype,
+                curr=np.asarray(curr))
 
     def to_host(self) -> np.ndarray:
         return self._state.copy()
@@ -150,17 +155,22 @@ class DeviceReferenceChain(ReferenceChain):
         self._shape = tuple(arr.shape)
 
     def advance(self, dev: pipe.DeviceEncoded, curr) -> None:
-        idx = dev.idx_dev
-        curr_dev = (dev.curr_dev if dev.curr_dev is not None
-                    else torch.tensor(np.asarray(curr), device=self.device))
-        # Centers are a float64 view of values already rounded to the data
-        # dtype, so this cast is exact.
-        centers = torch.as_tensor(dev.centers, device=self.device).to(
-            self._state.dtype)
-        new = kops.chain_advance(idx.reshape(-1), self._state.reshape(-1),
-                                 curr_dev.reshape(-1), centers,
-                                 b_bits=dev.enc.b_bits)
-        self._state = new.reshape(self._shape)
+        with telemetry.span("chain.advance"):
+            curr_dev = dev.curr_dev
+            if curr_dev is None:
+                with telemetry.span("sync.chain_curr"):
+                    curr_dev = torch.tensor(np.asarray(curr),
+                                            device=self.device)
+            # Centers are a float64 view of values already rounded to the
+            # data dtype, so this cast is exact.
+            with telemetry.span("sync.chain_centers"):
+                centers = torch.as_tensor(dev.centers, device=self.device)
+            centers = centers.to(self._state.dtype)
+            new = kops.chain_advance(dev.idx_dev.reshape(-1),
+                                     self._state.reshape(-1),
+                                     curr_dev.reshape(-1), centers,
+                                     b_bits=dev.enc.b_bits)
+            self._state = new.reshape(self._shape)
 
     def to_host(self) -> np.ndarray:
         return self._state.cpu().numpy().copy()

@@ -37,7 +37,13 @@ Telemetry (``repro_torch.obs``): the reference's ``encode.*`` and
 finalize folds into the per-step record, and the per-read record
 ``meta["telemetry_read"]``.  With telemetry enabled each device stage
 ends in a ``torch.cuda.synchronize`` so a span means stage time, as the
-reference's ``block_until_ready``; disabled, nothing waits.
+reference's ``block_until_ready``; disabled, nothing waits.  Beyond the
+reference's spans, ``TemporalCompressor.add_async`` is one
+``compress.step`` span, and every call of a delta step that blocks the
+host on the device (a copy either way, a ``nonzero``, a ``tolist``) is a
+``sync.<site>`` span of its own: ``sync.upload`` here, the others where
+the call is made (ratios, select_b, ops, rans, chain).  Those stage
+syncs are not program syncs and stay outside the ``sync.*`` family.
 """
 from __future__ import annotations
 
@@ -155,7 +161,9 @@ def _pack_blocks_device(padded: torch.Tensor, b_bits: int,
     """Pack the whole marker-padded table in one kernel launch, fetch the
     words once and slice them per block on the host."""
     words = kops.pack_bits(padded, b_bits=b_bits)
-    raw = words.cpu().numpy().astype("<u4", copy=False).tobytes()
+    with telemetry.span("sync.packed"):
+        raw = words.cpu().numpy()
+    raw = raw.astype("<u4", copy=False).tobytes()
     return pipe.split_packed(raw, padded.numel() // block_elems, block_elems,
                              b_bits)
 
@@ -225,21 +233,21 @@ def encode_device(prev, curr, params: NumarckParams,
     dtype = np.dtype(str(curr_t.dtype).removeprefix("torch."))
     n = curr_t.numel()
     tele = telemetry.enabled()
-    with telemetry.span("encode.analyze", annotate=True) as sp_an:
+    with telemetry.span("encode.analyze") as sp_an:
         a = _analyze(prev_t.reshape(-1), curr_t.reshape(-1), params,
                      dtype.itemsize)
         if tele:
             _sync(dev)
-    with telemetry.span("encode.index", annotate=True,
-                        strategy=params.strategy) as sp_idx:
+    with telemetry.span("encode.index", strategy=params.strategy) as sp_idx:
         if params.strategy == STRATEGY_TOPK:
             b_bits = int(params.b_bits if params.b_bits is not None
                          else a["b_auto"])
             k_eff = min((1 << b_bits) - 1, params.max_bins)
             idx = _encode_topk(a["bin_ids"], a["ids_desc"], b_bits, k_eff,
                                params.max_bins)
-            centers = pipe.topk_centers(a["ids_desc"][:k_eff].cpu().numpy(),
-                                        k_eff, float(a["domain_lo"]),
+            with telemetry.span("sync.centers"):
+                sel = a["ids_desc"][:k_eff].cpu().numpy()
+            centers = pipe.topk_centers(sel, k_eff, float(a["domain_lo"]),
                                         float(a["width"]))
         else:
             b_bits = int(params.b_bits if params.b_bits is not None else 8)
@@ -260,15 +268,16 @@ def encode_device(prev, curr, params: NumarckParams,
         if n:
             exc_counts, exc_pos = kops.exception_compact(idx, n, marker, be)
     on_device = bool(n) and device_entropy_route(params, n, b_bits)
-    with telemetry.span("encode.device_entropy", annotate=True) as sp_de:
+    with telemetry.span("encode.device_entropy") as sp_de:
         # Device entropy stage: finalize takes the finished blobs.
         if on_device:
             padded = _pad_blocks(idx, b_bits, be)
             nblocks = padded.numel() // be
             if symbol_entropy_route(params, b_bits, k_eff):
+                with telemetry.span("sync.counts"):
+                    counts = a["counts_desc"][:k_eff].cpu().numpy()
                 coded = rans.compress_blocks_device_symbols(
-                    padded, b_bits, k_eff, nblocks, be,
-                    a["counts_desc"][:k_eff].cpu().numpy())
+                    padded, b_bits, k_eff, nblocks, be, counts)
             else:
                 coded = rans.compress_blocks_device(padded, b_bits, nblocks,
                                                     be)
@@ -277,12 +286,15 @@ def encode_device(prev, curr, params: NumarckParams,
     if n and not on_device:
         # The bit-pack kernel and one copy of the words to the host (the
         # reference's sharded driver's stage of the same name).
-        with telemetry.span("encode.pack_fetch", annotate=True) as sp_pack:
+        with telemetry.span("encode.pack_fetch") as sp_pack:
             packed = _pack_blocks_device(_pad_blocks(idx, b_bits, be),
                                          b_bits, be)
         pack_s = sp_pack.duration
     with telemetry.span("encode.idx_fetch") as sp_fetch:
-        idx_host = idx.cpu().numpy() if need_host_idx else None
+        idx_host = None
+        if need_host_idx:
+            with telemetry.span("sync.idx"):
+                idx_host = idx.cpu().numpy()
     enc = pipe.EncodedIndices(
         idx=idx_host, b_bits=b_bits, block_elems=be, n=n, packed=packed,
         entropy_coded=coded, entropy_codec=coded_name,
@@ -339,7 +351,7 @@ def _record_read(step: CompressedStep, entropy_s: float = 0.0,
 def _fetch(step: CompressedStep, out: torch.Tensor) -> np.ndarray:
     """The one copy of a device reconstruction to the host, timed as
     ``decode.fetch`` into the step's read record."""
-    with telemetry.span("decode.fetch", annotate=True) as sp_f:
+    with telemetry.span("decode.fetch") as sp_f:
         host = out.to("cpu", copy=True).numpy()
     if telemetry.enabled() and "telemetry_read" in step.meta:
         step.meta["telemetry_read"]["fetch_s"] = sp_f.duration
@@ -356,7 +368,7 @@ def decode_anchor(step: CompressedStep, device=None) -> np.ndarray:
     dev = chainmod.resolve_device(device)
     sd = step_dtype(step.dtype)
     route = device_decode_route(step)
-    with telemetry.span("decode.entropy", annotate=True) as sp_e:
+    with telemetry.span("decode.entropy") as sp_e:
         if route:
             raw = rans.decode_bytes_blocks_device(
                 step.index_blocks, dev).cpu().numpy().tobytes()
@@ -388,7 +400,7 @@ def decode_anchor_device(step: CompressedStep, device=None) -> torch.Tensor:
     if not device_decode_route(step):
         return storage_tensor(decode_anchor(step, dev), sd.name).to(dev)
     tele = telemetry.enabled()
-    with telemetry.span("decode.entropy", annotate=True) as sp_e:
+    with telemetry.span("decode.entropy") as sp_e:
         flat = rans.decode_bytes_blocks_device(step.index_blocks, dev)
         want = step.n * sd.itemsize
         if flat.numel() != want:
@@ -439,19 +451,19 @@ def decompress_step_device(step: CompressedStep, prev,
            else chainmod.resolve_device(device))
     tele = telemetry.enabled()
     cdt = step_dtype(pipe.reconstruction_dtype(step.dtype)).torch
-    with telemetry.span("decode.entropy", annotate=True) as sp_e:
+    with telemetry.span("decode.entropy") as sp_e:
         idx = rans.decode_blocks_device(step.index_blocks, step.b_bits,
                                         step.block_elems, dev)
         idx = idx.reshape(-1)[:step.n].contiguous()
         if tele:
             _sync(dev)
-    with telemetry.span("decode.dequant", annotate=True) as sp_d:
+    with telemetry.span("decode.dequant") as sp_d:
         prev_t = _to_device(prev, dev).reshape(-1).to(cdt).contiguous()
         centers = torch.tensor(step.centers, device=dev).to(cdt)
         recon = kops.dequantize(idx, prev_t, centers, b_bits=step.b_bits)
         if tele:
             _sync(dev)
-    with telemetry.span("decode.patch", annotate=True) as sp_p:
+    with telemetry.span("decode.patch") as sp_p:
         if step.n_incompressible:
             recon = patch_exceptions(
                 recon, idx, torch.tensor(step.incomp_values, device=dev),
@@ -481,15 +493,15 @@ def decompress_step(step: CompressedStep, prev: Optional[np.ndarray],
         return _fetch(step, decompress_step_device(step, prev, dev))
     cdt = pipe.reconstruction_dtype(step.dtype)
     marker = (1 << step.b_bits) - 1
-    with telemetry.span("decode.entropy", annotate=True) as sp_e:
+    with telemetry.span("decode.entropy") as sp_e:
         idx = _decode_index_host(step)
-    with telemetry.span("decode.dequant", annotate=True) as sp_d:
+    with telemetry.span("decode.dequant") as sp_d:
         prev_flat = np.asarray(prev).reshape(-1).astype(cdt, copy=False)
         centers = np.concatenate([step.centers,
                                   np.zeros(marker + 1 - step.centers.size)
                                   ]).astype(cdt)
         out = prev_flat * (1 + centers[idx])
-    with telemetry.span("decode.patch", annotate=True) as sp_p:
+    with telemetry.span("decode.patch") as sp_p:
         if step.n_incompressible:
             # Exception values are compacted in stream order == block
             # order.
@@ -525,33 +537,40 @@ class TemporalCompressor:
 
     def add_async(self, arr: np.ndarray) -> "Future[CompressedStep]":
         """Device-encode `arr` now; return a future of the finalized step.
-        The reference chain advances before returning."""
-        arr = np.asarray(arr)
-        step_i, self._step = self._step, self._step + 1
-        if self._chain is None or self._chain.empty:
-            self._chain = chainmod.make_reference_chain(self.chain,
-                                                        arr.dtype,
-                                                        self.device)
-            self._chain.seed(arr)
-            return self._q.submit(pipe.finalize_anchor, arr.copy(),
-                                  self.params,
-                                  label=f"anchor step {step_i}")
-        on_device = self._chain.residency == chainmod.CHAIN_DEVICE
-        # One upload of `curr`, shared by the encode and the chain advance;
-        # a private copy, since callers may reuse their buffers at once.
-        curr_in = torch.tensor(arr, device=self.device) if on_device else arr
-        dev = encode_device(self._chain.peek(), curr_in, self.params,
-                            need_host_idx=not on_device, device=self.device)
-        if self.params.reference == REF_RECONSTRUCTED:
-            self._chain.advance(dev, arr)
-        else:
-            self._chain.replace(arr)
-        # The background finalize reads `arr` (exception values).
-        curr = arr.copy() if self.overlap else arr
-        return self._q.submit(pipe.finalize_step, curr, dev.enc,
-                              dev.centers, dev.domain_lo, dev.width,
-                              self.params, dev.meta,
-                              label=f"finalize step {step_i}")
+        The reference chain advances before returning.  With telemetry on,
+        the whole call is the ``compress.step`` span."""
+        with telemetry.span("compress.step"):
+            arr = np.asarray(arr)
+            step_i, self._step = self._step, self._step + 1
+            if self._chain is None or self._chain.empty:
+                self._chain = chainmod.make_reference_chain(self.chain,
+                                                            arr.dtype,
+                                                            self.device)
+                self._chain.seed(arr)
+                return self._q.submit(pipe.finalize_anchor, arr.copy(),
+                                      self.params,
+                                      label=f"anchor step {step_i}")
+            on_device = self._chain.residency == chainmod.CHAIN_DEVICE
+            # One upload of `curr`, shared by the encode and the chain
+            # advance; a private copy, since callers may reuse their
+            # buffers at once.
+            curr_in = arr
+            if on_device:
+                with telemetry.span("sync.upload"):
+                    curr_in = torch.tensor(arr, device=self.device)
+            dev = encode_device(self._chain.peek(), curr_in, self.params,
+                                need_host_idx=not on_device,
+                                device=self.device)
+            if self.params.reference == REF_RECONSTRUCTED:
+                self._chain.advance(dev, arr)
+            else:
+                self._chain.replace(arr)
+            # The background finalize reads `arr` (exception values).
+            curr = arr.copy() if self.overlap else arr
+            return self._q.submit(pipe.finalize_step, curr, dev.enc,
+                                  dev.centers, dev.domain_lo, dev.width,
+                                  self.params, dev.meta,
+                                  label=f"finalize step {step_i}")
 
     def add(self, arr: np.ndarray) -> CompressedStep:
         return self.add_async(arr).result()

@@ -10,11 +10,16 @@ On a CUDA tensor PyTorch computes ``tensor / python_scalar`` as a multiply
 by the reciprocal, which is not correctly rounded; every division here is
 therefore tensor by tensor, with scalars held as 0-d tensors on the data's
 device.
+
+The two host copies of the range pass are the ``sync.range`` and
+``sync.signed_zero`` telemetry spans.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.obs import telemetry
 
 
 def change_ratios(prev: torch.Tensor, curr: torch.Tensor):
@@ -33,7 +38,9 @@ def valid_ends(ratios: torch.Tensor, valid: torch.Tensor):
     """(min, max) over valid ratios as host floats, each zero end signed
     as XLA's min and max sign it; (inf, -inf) when none are valid.  One
     device-to-host copy (two when an end is zero)."""
-    lo, hi = valid_ends_device(ratios, valid).tolist()
+    ends = valid_ends_device(ratios, valid)
+    with telemetry.span("sync.range"):
+        lo, hi = ends.tolist()
     if lo == 0 or hi == 0:
         lo, hi = _signed_zero_ends(ratios, valid, lo, hi)
     return lo, hi
@@ -64,8 +71,9 @@ def _signed_zero_ends(ratios, valid, lo: float, hi: float):
     Both ends are recorded in the step (domain_lo, meta ratio_min/max)."""
     zero = valid & (ratios == 0)
     neg = torch.signbit(ratios)
-    neg_zero, pos_zero = torch.stack(
-        [(zero & neg).any(), (zero & ~neg).any()]).tolist()
+    flags = torch.stack([(zero & neg).any(), (zero & ~neg).any()])
+    with telemetry.span("sync.signed_zero"):
+        neg_zero, pos_zero = flags.tolist()
     if lo == 0:
         lo = -0.0 if neg_zero else 0.0
     if hi == 0:

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.obs import telemetry
+
 _CHUNK = 16
 
 
@@ -62,9 +64,14 @@ def estimated_file_sizes(counts_desc: torch.Tensor, n: int, elem_bytes: int,
 
 
 def choose_b(counts_desc: torch.Tensor, n: int, elem_bytes: int, b_max: int):
-    """argmin_B file_size(B) (first minimum); returns (B, sizes (b_max,))."""
-    sizes = estimated_file_sizes(counts_desc, n, elem_bytes, b_max)
-    return int(torch.argmin(sizes)) + 1, sizes
+    """argmin_B file_size(B) (first minimum); returns (B, sizes (b_max,)).
+    The histogram's copy to the host is the ``sync.choose_b`` span, the
+    model on the host the ``choose_b.model`` span."""
+    with telemetry.span("sync.choose_b"):
+        counts_desc = counts_desc.cpu()
+    with telemetry.span("choose_b.model"):
+        sizes = estimated_file_sizes(counts_desc, n, elem_bytes, b_max)
+        return int(torch.argmin(sizes)) + 1, sizes
 
 
 def choose_b_host(counts_desc: np.ndarray, n: int, elem_bytes: int,

@@ -314,7 +314,7 @@ class ShardedCompressor:
             prev_sh = self._scatter(np.asarray(prev).reshape(-1), ln)
         curr_sh = self._scatter(curr.reshape(-1), ln)
         tele = telemetry.enabled()
-        with telemetry.span("encode.analyze", annotate=True, n=n) as sp_an:
+        with telemetry.span("encode.analyze", n=n) as sp_an:
             a = self._analyze(prev_sh, curr_sh, n, curr.dtype.itemsize)
             if tele:
                 _sync(self.devices)
@@ -322,7 +322,7 @@ class ShardedCompressor:
                  else (p.b_bits if p.b_bits is not None else a["b_auto"]))
         k_eff = min((1 << bb) - 1, p.max_bins)
         lay = self._layout(n, bb)
-        with telemetry.span("encode.index", annotate=True,
+        with telemetry.span("encode.index",
                             b_bits=bb) as sp_idx:
             outs = self._encode_shards(a["bin_ids"], a["ids_desc"], lay,
                                        k_eff)
@@ -348,7 +348,7 @@ class ShardedCompressor:
         a, lay, outs, centers, meta, curr_sh, stage_s = self._encode_common(
             prev, curr, b_bits)
         raws = coded = coded_name = None
-        with telemetry.span("encode.device_entropy", annotate=True) as sp_de:
+        with telemetry.span("encode.device_entropy") as sp_de:
             if comp.device_entropy_route(self.params, lay.n, lay.b_bits):
                 coded = self._entropy_stage(outs, lay)
                 coded_name = self.params.codec
@@ -561,11 +561,11 @@ class ShardedDecompressor:
         tdt = step_dtype(cdt).torch
         marker = (1 << step.b_bits) - 1
         prev_flat = np.asarray(prev).reshape(-1).astype(cdt, copy=False)
-        with telemetry.span("decode.entropy", annotate=True) as sp_e:
+        with telemetry.span("decode.entropy") as sp_e:
             parts = self._index_shards(step)
             if tele:
                 _sync(self.devices)
-        with telemetry.span("decode.dequant", annotate=True) as sp_d:
+        with telemetry.span("decode.dequant") as sp_d:
             recon = []
             for d, (start, idx) in zip(self.devices, parts):
                 if not idx.numel():
@@ -580,7 +580,7 @@ class ShardedDecompressor:
                                                  b_bits=step.b_bits))
             if tele:
                 _sync(self.devices)
-        with telemetry.span("decode.patch", annotate=True) as sp_p:
+        with telemetry.span("decode.patch") as sp_p:
             counts = [int((idx == marker).sum()) for _, idx in parts]
             offs = coll.exclusive_scan_sum(counts, self.group)
             values = torch.from_numpy(np.asarray(step.incomp_values, cdt))
@@ -592,7 +592,7 @@ class ShardedDecompressor:
                         b_bits=step.b_bits)
             if tele:
                 _sync(self.devices)
-        with telemetry.span("decode.fetch", annotate=True) as sp_f:
+        with telemetry.span("decode.fetch") as sp_f:
             res = torch.cat([r.cpu() for r in recon if r is not None]).numpy()
             res = res.astype(step.dtype).reshape(step.shape)
         if tele:

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import bitpack, change_ratio, dequant, hist, rans
+from repro_torch.obs import telemetry
 
 # Every kernel of the main paths, for build checks and launch counts: the
 # four of the compress path, then the rANS encode, decode and unpack.
@@ -83,16 +84,22 @@ def rans_unpack(byts, *, b_bits, be):
 def exception_compact(idx, n, marker, block_elems):
     """Incompressible compaction for the encode stage: (per-block marker
     counts (nblocks,) int64, ascending marker positions (k,) int64), both
-    on the host."""
+    on the host.  The ``nonzero`` and the two copies are the
+    ``sync.exc_nonzero``, ``sync.exc_counts`` and ``sync.exc_positions``
+    spans."""
     mask = idx.reshape(-1)[:n] == marker
     nblocks = -(-n // block_elems)
     padded = torch.zeros(nblocks * block_elems, dtype=torch.int32,
                          device=mask.device)
     padded[:n] = mask
     counts = padded.view(nblocks, block_elems).sum(dim=1)
-    pos = torch.nonzero(mask).reshape(-1)
-    return (counts.cpu().numpy().astype(np.int64),
-            pos.cpu().numpy().astype(np.int64))
+    with telemetry.span("sync.exc_nonzero"):
+        pos = torch.nonzero(mask).reshape(-1)
+    with telemetry.span("sync.exc_counts"):
+        counts = counts.cpu()
+    with telemetry.span("sync.exc_positions"):
+        pos = pos.cpu()
+    return (counts.numpy().astype(np.int64), pos.numpy().astype(np.int64))
 
 
 __all__ = ["KERNELS", "change_ratio_bins", "histogram", "pack_bits",

@@ -46,6 +46,13 @@ has no shifts or adds).  ``kernels.ops`` takes the plain version for CPU
 tensors and the kernel for CUDA tensors, with no fallback.  u32 words
 cross the kernels' interface as int32 tensors and u16 stream words as
 int16 tensors, holding the same bits.
+
+Telemetry of the device entropy stage: each blocking call is a ``sync.*``
+span of its own (``sync.samples``, ``sync.freq_up``, the masked select
+and the three copies of the coded streams ``sync.stream_select``,
+``sync.stream_states``, ``sync.stream_words``, ``sync.stream_counts``,
+and ``sync.raw_block`` for a block that codes larger than raw), the host
+tables are ``entropy.tables`` and the blob loop ``entropy.assemble``.
 """
 from __future__ import annotations
 
@@ -58,6 +65,7 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.kernels._build import Kernel, check_cuda
+from repro_torch.obs import telemetry
 
 SCALE_BITS = 12
 M = 1 << SCALE_BITS                 # total frequency budget per table
@@ -726,10 +734,17 @@ def _run_encode(syms2d, fc):
     L = lanes_for(syms2d.shape[1])
     states, vals, masks = kops.rans_encode(syms2d, fc, L=L)
     n_emit = masks.sum(dim=1)
-    stream = vals[masks]                  # block order: rows contiguous
-    states = states.cpu().numpy().view(np.uint32)
-    stream = stream.cpu().numpy().view(np.uint16)
-    n_emit = n_emit.cpu().numpy()
+    with telemetry.span("sync.stream_select"):
+        stream = vals[masks]              # block order: rows contiguous
+    with telemetry.span("sync.stream_states"):
+        states = states.cpu()
+    with telemetry.span("sync.stream_words"):
+        stream = stream.cpu()
+    with telemetry.span("sync.stream_counts"):
+        n_emit = n_emit.cpu()
+    states = states.numpy().view(np.uint32)
+    stream = stream.numpy().view(np.uint16)
+    n_emit = n_emit.numpy()
     bounds = np.concatenate([[0], np.cumsum(n_emit)])
     return states, [stream[bounds[k]:bounds[k + 1]]
                     for k in range(len(n_emit))]
@@ -748,21 +763,25 @@ def compress_blocks_device(idx_dev: torch.Tensor, b_bits: int, nblocks: int,
     nbytes = block_elems * b_bits // 8
     words = kops.pack_bits(idx_dev, b_bits=b_bits)
     byts = words.view(torch.uint8).view(nblocks, nbytes)
-    # Frequency tables are built host-side from the strided samples --
-    # the one designed sync of the encode path.
-    # repro-lint: disable=host-sync-in-device-path
-    samples = byts[:, ::sample_stride(nbytes)].cpu().numpy()
-    freqs, fcs = tables_from_samples(samples)
-    fc = torch.from_numpy(fcs.view(np.int32)).to(idx_dev.device)
+    # Frequency tables are built host-side from the strided samples.
+    with telemetry.span("sync.samples"):
+        # repro-lint: disable=host-sync-in-device-path
+        samples = byts[:, ::sample_stride(nbytes)].cpu().numpy()
+    with telemetry.span("entropy.tables"):
+        freqs, fcs = tables_from_samples(samples)
+    with telemetry.span("sync.freq_up"):
+        fc = torch.from_numpy(fcs.view(np.int32)).to(idx_dev.device)
     states, streams = _run_encode(byts, fc)
 
     def raw_bytes(k):
         # only for a block that codes larger than raw
-        return byts[k].cpu().numpy().tobytes()
+        with telemetry.span("sync.raw_block"):
+            return byts[k].cpu().numpy().tobytes()
 
-    return [assemble_blob(nbytes, freqs[k], states[k], streams[k],
-                          raw_bytes=lambda k=k: raw_bytes(k))
-            for k in range(nblocks)]
+    with telemetry.span("entropy.assemble"):
+        return [assemble_blob(nbytes, freqs[k], states[k], streams[k],
+                              raw_bytes=lambda k=k: raw_bytes(k))
+                for k in range(nblocks)]
 
 
 def compress_blocks_device_symbols(idx_dev: torch.Tensor, b_bits: int,
@@ -775,21 +794,25 @@ def compress_blocks_device_symbols(idx_dev: torch.Tensor, b_bits: int,
     Byte-identical to ``compress_symbols``."""
     be = block_elems
     nbytes = be * b_bits // 8
-    # counts_ranks is already a host array (analyze-boundary metadata).
-    # repro-lint: disable=host-sync-in-device-path
-    freq = symbol_freq(np.asarray(counts_ranks), k_eff, nblocks * be)
-    fc = torch.from_numpy(pack_fc(freq).view(np.int32)[None, :]).to(
-        idx_dev.device)
+    with telemetry.span("entropy.tables"):
+        # counts_ranks is already a host array (analyze-boundary metadata).
+        # repro-lint: disable=host-sync-in-device-path
+        freq = symbol_freq(np.asarray(counts_ranks), k_eff, nblocks * be)
+        fc = pack_fc(freq).view(np.int32)[None, :]
+    with telemetry.span("sync.freq_up"):
+        fc = torch.from_numpy(fc).to(idx_dev.device)
     idx2d = idx_dev.view(nblocks, be)
     states, streams = _run_encode(idx2d, fc)
 
     def raw_bytes(k):
-        idx_h = idx2d[k].cpu().numpy().astype(np.int64)
+        with telemetry.span("sync.raw_block"):
+            idx_h = idx2d[k].cpu().numpy().astype(np.int64)
         return packing.pack_indices_np(idx_h, b_bits).tobytes()[:nbytes]
 
-    return [assemble_symbol_blob(be, b_bits, freq, states[k], streams[k],
-                                 raw_bytes=lambda k=k: raw_bytes(k))
-            for k in range(nblocks)]
+    with telemetry.span("entropy.assemble"):
+        return [assemble_symbol_blob(be, b_bits, freq, states[k], streams[k],
+                                     raw_bytes=lambda k=k: raw_bytes(k))
+                for k in range(nblocks)]
 
 
 def _upload_group(parsed, device):

@@ -35,10 +35,12 @@ Usage::
     report.rollup(reg)          # aggregates
     trace.write_chrome_trace(path, reg)   # chrome://tracing JSON
 
-``span(..., annotate=True)`` additionally enters the device annotation
+While a capture is active every span also enters the device annotation
 that ``obs.trace`` registers (``torch.profiler.record_function``, plus an
-NVTX range once CUDA is initialised), so host spans line up with the
-kernels they launched in a ``torch.profiler`` capture.
+NVTX range once CUDA is initialised), so each host span lines up with the
+kernels it launched in a ``torch.profiler`` capture, on the profiler's
+clock.  The reference's ``annotate=`` switch is gone: one rule, every
+span.  Disabled, ``span`` returns the shared no-op and touches no torch.
 """
 from __future__ import annotations
 
@@ -221,16 +223,14 @@ class Span:
 
     __slots__ = ("_reg", "name", "attrs", "t0", "t1", "_depth", "_ann")
 
-    def __init__(self, reg: Registry, name: str, attrs: Dict[str, Any],
-                 annotate: bool):
+    def __init__(self, reg: Registry, name: str, attrs: Dict[str, Any]):
         self._reg = reg
         self.name = name
         self.attrs = attrs
         self.t0 = 0.0
         self.t1 = 0.0
-        ann = _annotation_factory(name) if (annotate
-                                            and _annotation_factory) else None
-        self._ann = ann
+        fn = _annotation_factory
+        self._ann = fn(name) if fn is not None else None
 
     def set(self, **kw):
         self.attrs.update(kw)
@@ -264,13 +264,14 @@ class Span:
         return False
 
 
-def span(name: str, annotate: bool = False, **attrs):
-    """Open a (nested) span.  Returns the shared no-op constant when
-    telemetry is disabled -- safe to leave in hot paths."""
+def span(name: str, **attrs):
+    """Open a (nested) span, which also enters the registered device
+    annotation.  Returns the shared no-op constant when telemetry is
+    disabled -- safe to leave in hot paths."""
     reg = _active
     if reg is None:
         return NOOP_SPAN
-    return Span(reg, name, attrs, annotate)
+    return Span(reg, name, attrs)
 
 
 def counter(name: str, value: float = 1.0):

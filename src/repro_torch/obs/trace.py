@@ -17,12 +17,12 @@ Open a written file at chrome://tracing or https://ui.perfetto.dev.
 
 Device bridging: importing this module registers an annotation factory
 with the telemetry layer in place of the reference's jax
-``TraceAnnotation``: ``span(..., annotate=True)`` enters
+``TraceAnnotation``: every span opened under an enabled capture enters
 ``torch.profiler.record_function(name)``, so the span appears inside a
 ``torch.profiler`` capture above the kernels it launched, and, once CUDA
 is initialised in the process, pushes an NVTX range of the same name.
-torch is imported only when an annotated span opens under an enabled
-capture, so importing this module stays standard library only.
+torch is imported only when a span opens under an enabled capture, so
+importing this module stays standard library only.
 """
 from __future__ import annotations
 

@@ -244,7 +244,7 @@ class Engine:
         out = torch.empty((self.B, max_new), dtype=torch.int32,
                           device=self.device)
         t0 = time.perf_counter()
-        with telemetry.span("serve.decode_loop", annotate=True,
+        with telemetry.span("serve.decode_loop",
                             max_new=max_new, batch=self.B):
             for i in range(max_new):
                 out[:, i] = tok[:, 0]
@@ -279,7 +279,7 @@ class Engine:
             raise ValueError(f"{prompts.shape[0]} prompts for a batch of "
                              f"{self.B}")
         t0 = time.perf_counter()
-        with telemetry.span("serve.prefill", annotate=True,
+        with telemetry.span("serve.prefill",
                             batch=self.B, s0=int(prompts.shape[1])):
             tokens = torch.from_numpy(prompts.astype(np.int64)).to(
                 self.device)

@@ -1184,3 +1184,63 @@ def test_cuda_restore_elastic_onto_a_one_rank_mesh(cuda, tmp_path):
         assert sharded > 0
     finally:
         ld.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_every_sync_of_a_delta_step_is_a_sync_span(cuda):
+    """Under ``torch.cuda.set_sync_debug_mode("warn")`` every call of a
+    CMIP-shaped delta step (device rANS, chain on the card) that makes the
+    host wait on the card warns while the innermost open telemetry span is
+    a ``sync.*`` span, and every sync span holds exactly one such wait,
+    so the count of sync spans is the count of waits.  The stage ``_sync``
+    calls that only telemetry makes are not program syncs and are told
+    apart by their frame."""
+    import collections
+    import sys
+    import warnings
+
+    from repro_torch.core import compress
+    from repro_torch.core.types import NumarckParams
+    from repro_torch.obs import telemetry
+
+    series = list(generate_series("cmip", n_iterations=5, seed=11))
+    params = NumarckParams(error_bound=1e-3, max_bins=65536, b_max=16,
+                           block_bytes=1 << 20, codec="rans")
+    comp = compress.TemporalCompressor(params, device=cuda)
+    comp.add(series[0])
+    comp.add(series[1])                     # builds and warms the kernels
+    torch.cuda.synchronize()
+    stage_code = compress._sync.__code__
+    waits = []                  # ((innermost span, its t0), stage sync)
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        frame, stage = sys._getframe(), False
+        while frame is not None and not stage:
+            stage = frame.f_code is stage_code
+            frame = frame.f_back
+        stack = telemetry.active()._stack()
+        inner = (stack[-1].name, stack[-1].t0) if stack else (None, None)
+        waits.append((inner, stage))
+
+    with telemetry.capture() as reg, warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            steps = [comp.add(a) for a in series[2:]]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    comp.close()
+    assert all(st.meta["telemetry"]["device_entropy"] for st in steps)
+    program = [inner for inner, stage in waits if not stage]
+    assert program, "the sync debug mode reported nothing"
+    outside = sorted({str(n) for n, _ in program
+                      if n is None or not n.startswith("sync.")})
+    assert not outside, f"waits outside a sync.* span: {outside}"
+    recorded = sorted((r.name, r.t0) for r in reg.spans
+                      if r.name.startswith("sync."))
+    assert sorted(program) == recorded, (
+        sorted(collections.Counter(n for n, _ in program).items()),
+        sorted(collections.Counter(n for n, _ in recorded).items()))

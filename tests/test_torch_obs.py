@@ -84,6 +84,16 @@ def _nck_bytes(writer_cls, steps, path) -> bytes:
     return path.read_bytes()
 
 
+# Span names of the port alone: its step, chain and entropy-stage spans
+# and the sync.* family (one span per call that blocks on the device).
+PORT_SPANS = {"compress.step", "chain.advance", "choose_b.model",
+              "entropy.tables", "entropy.assemble"}
+
+
+def _port_spans(names) -> set:
+    return {n for n in names if n in PORT_SPANS or n.startswith("sync.")}
+
+
 def _lane_kinds(doc) -> set:
     """Thread lane names of a Chrome trace without their pool index."""
     return {re.sub(r"_\d+$", "", e["args"]["name"])
@@ -162,7 +172,7 @@ def test_public_names_match_the_reference():
 def test_disabled_returns_shared_noop():
     assert not telemetry.enabled()
     assert telemetry.span("x") is telemetry.NOOP_SPAN
-    assert telemetry.span("y", annotate=True, k=1) is telemetry.NOOP_SPAN
+    assert telemetry.span("y", k=1) is telemetry.NOOP_SPAN
     assert trace.device_annotation("z") is telemetry.NOOP_SPAN
     assert telemetry.NOOP_SPAN.set(a=1) is telemetry.NOOP_SPAN
     assert telemetry.NOOP_SPAN.duration == 0.0
@@ -197,12 +207,12 @@ def test_disabled_overhead_is_negligible():
 
 
 def test_annotated_span_reaches_the_torch_profiler():
-    """The device bridge: an annotated span opens a record_function of its
-    name, which a torch.profiler capture records (on the CPU here)."""
+    """The device bridge: every span opens a record_function of its name,
+    which a torch.profiler capture records (on the CPU here)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         with telemetry.capture() as reg:
-            with telemetry.span("obs.bridge", annotate=True):
+            with telemetry.span("obs.bridge"):
                 torch.ones(8).add_(1)
             with trace.device_annotation("obs.bare"):
                 torch.ones(8).add_(1)
@@ -286,7 +296,10 @@ def test_sharded_driver_same_telemetry_shape_and_blobs(overlap):
         jsc.compress_series(series)
     jsc.close()
     roll, jroll = report.rollup(reg), jreport.rollup(jreg)
-    assert set(roll["spans"]) == set(jroll["spans"])
+    assert set(roll["spans"]) - _port_spans(roll["spans"]) \
+        == set(jroll["spans"])
+    assert _port_spans(roll["spans"]) == {"sync.range", "sync.choose_b",
+                                          "choose_b.model"}
     assert roll["counters"] == jroll["counters"]
     for name, agg in jroll["spans"].items():
         assert roll["spans"][name]["count"] == agg["count"], name
@@ -418,7 +431,8 @@ def test_series_rollup():
 def test_rollup_structure_matches_the_reference():
     """The rollup of one series: every span the reference's driver emits
     on that path (the port adds encode.pack_fetch: its bit-pack runs on
-    the device), the same counters and the same aggregate fields."""
+    the device; and its own step, chain and sync spans), the same
+    counters and the same aggregate fields."""
     series = _series()
     with telemetry.capture() as reg:
         compress_series(series, P, device="cpu")
@@ -427,7 +441,11 @@ def test_rollup_structure_matches_the_reference():
     roll, jroll = report.rollup(reg), jreport.rollup(jreg)
     assert roll.keys() == jroll.keys()
     assert set(jroll["spans"]) <= set(roll["spans"])
-    assert set(roll["spans"]) - set(jroll["spans"]) == {"encode.pack_fetch"}
+    assert set(roll["spans"]) - set(jroll["spans"]) == {
+        "encode.pack_fetch", "compress.step", "chain.advance",
+        "choose_b.model", "sync.upload", "sync.range", "sync.choose_b",
+        "sync.centers", "sync.exc_nonzero", "sync.exc_counts",
+        "sync.exc_positions", "sync.packed", "sync.chain_centers"}
     assert roll["counters"] == jroll["counters"]
     for name, agg in roll["spans"].items():
         assert agg.keys() == {"count", "total_s", "max_s", "errors",
@@ -437,6 +455,135 @@ def test_rollup_structure_matches_the_reference():
     fin = roll["spans"]["finalize"]
     assert fin["count"] == len(series) - 1
     assert fin["total_s"] >= fin["max_s"] >= fin["mean_s"] >= 0.0
+
+
+# ------------------------------------ the stream step's sync spans
+
+# The sync.* spans of one delta step on the device-rANS route with the
+# chain on the device, in order: the upload, the range pass, auto-B's
+# histogram, the top-k centers, the exception compaction's nonzero and
+# two copies, the sampled bytes, the frequency tables' upload, the coded
+# streams' masked select and three copies, the chain advance's centers:
+# one span for each of the 14 calls.  sync.signed_zero and sync.raw_block
+# depend on the data (test_data_dependent_sync_spans).
+DELTA_SYNCS = ["sync.upload", "sync.range", "sync.choose_b", "sync.centers",
+               "sync.exc_nonzero", "sync.exc_counts", "sync.exc_positions",
+               "sync.samples", "sync.freq_up", "sync.stream_select",
+               "sync.stream_states", "sync.stream_words",
+               "sync.stream_counts", "sync.chain_centers"]
+# The encode.* spans the reference has, and encode.pack_fetch: what
+# encode_ms.compress sums.  No other span may start with "encode." and
+# only finalize_step's may be named "finalize".
+ENCODE_SPANS = {"encode.analyze", "encode.index", "encode.exceptions",
+                "encode.device_entropy", "encode.pack_fetch",
+                "encode.idx_fetch"}
+
+
+@pytest.fixture(scope="module")
+def rans_step(tmp_path_factory):
+    """One anchor, then one 2^20-element delta step large enough for
+    DEVICE_MIN_BYTES on device="cpu", under telemetry and a CPU
+    torch.profiler: (the step, its span records, the profiler's
+    user_annotation names)."""
+    from repro_torch.core.compress import TemporalCompressor
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(7)
+    n = 1 << 20
+    prev = (rng.normal(size=n) + 2.0).astype(np.float32)
+    curr = prev * (1 + rng.normal(scale=2e-3, size=n)).astype(np.float32)
+    p = NumarckParams(error_bound=1e-3, max_bins=65536,
+                      block_bytes=1 << 20, codec="rans")
+    comp = TemporalCompressor(p, device="cpu")
+    comp.add(prev)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with telemetry.capture() as reg:
+            st = comp.add(curr)
+    comp.close()
+    path = tmp_path_factory.mktemp("prof") / "trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    notes = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert st.meta["telemetry"]["device_entropy"]
+    assert st.n * st.b_bits // 8 >= trans.DEVICE_MIN_BYTES
+    return st, list(reg.spans), notes
+
+
+def test_delta_step_records_each_sync_in_order(rans_step):
+    """Every blocking call of a delta step is its own sync.* span, in the
+    order the program makes them, each inside the compress.step span and
+    none inside another sync.* span."""
+    _, spans, _ = rans_step
+    step = [r for r in spans if r.name == "compress.step"]
+    assert len(step) == 1 and step[0].depth == 0
+    syncs = sorted((r for r in spans if r.name.startswith("sync.")),
+                   key=lambda r: r.t0)
+    assert [r.name for r in syncs] == DELTA_SYNCS
+    for r in syncs:
+        assert r.depth >= 1
+        assert step[0].t0 <= r.t0 <= r.t1 <= step[0].t1
+        assert not any(o is not r and o.name.startswith("sync.")
+                       and o.t0 <= r.t0 and r.t1 <= o.t1 for o in syncs)
+    names = {r.name for r in spans}
+    assert PORT_SPANS <= names
+
+
+def test_every_span_reaches_the_profiler_on_its_own(rans_step):
+    """Under a torch.profiler capture each span of the step is a
+    user_annotation of the same name: no span needs a switch."""
+    _, spans, notes = rans_step
+    assert {r.name for r in spans} <= notes
+
+
+def test_no_new_span_reads_as_encode_or_finalize(rans_step):
+    """encode_ms sums every span that starts with "encode." and
+    finalize_ms reads the span named "finalize": in the source of the
+    port and in a recorded step, only the spans those metrics were made
+    for take either form."""
+    import ast
+    import pathlib
+    import repro_torch
+    root = pathlib.Path(repro_torch.__file__).parent
+    seen = {}
+    for path in root.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if (isinstance(node, ast.Call) and node.args
+                    and isinstance(node.func, ast.Attribute)
+                    and node.func.attr == "span"
+                    and isinstance(node.args[0], ast.Constant)):
+                name = node.args[0].value
+                seen.setdefault(name, set()).add(path.name)
+    assert {n for n in seen if n.startswith("encode.")} == ENCODE_SPANS
+    assert seen["finalize"] == {"pipeline.py"}
+    _, spans, _ = rans_step
+    names = [r.name for r in spans]
+    assert {n for n in names if n.startswith("encode.")} <= ENCODE_SPANS
+    assert names.count("finalize") == 1
+
+
+@pytest.mark.parametrize("site", ["sync.signed_zero", "sync.raw_block"])
+def test_data_dependent_sync_spans(site):
+    """The two syncs that only some data make: the signed-zero pass of a
+    range whose end is zero, and the copy of a block that codes larger
+    than raw (inside entropy.assemble)."""
+    from repro_torch.core import ratios
+    with telemetry.capture() as reg:
+        if site == "sync.signed_zero":
+            r = torch.tensor([0.0, -0.0, 0.5], dtype=torch.float32)
+            lo, hi = ratios.valid_ends(r, torch.ones(3, dtype=torch.bool))
+            assert (lo, hi) == (0.0, 0.5) and np.signbit(lo)
+        else:
+            idx = torch.from_numpy(np.random.default_rng(3).integers(
+                0, 256, 4096, dtype=np.int64).astype(np.int32))
+            blobs = trans.compress_blocks_device(idx, 8, 1, 4096)
+            assert trans.blob_version(blobs[0]) == 0
+    recs = {r.name: r for r in reg.spans}
+    assert site in recs
+    if site == "sync.signed_zero":
+        assert [r.name for r in reg.spans] == ["sync.range", site]
+    else:
+        outer = recs["entropy.assemble"]
+        assert outer.t0 <= recs[site].t0 <= recs[site].t1 <= outer.t1
 
 
 # -------------------------------------------------------- chrome trace
