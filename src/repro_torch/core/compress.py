@@ -41,9 +41,10 @@ reference's ``block_until_ready``; disabled, nothing waits.  Beyond the
 reference's spans, ``TemporalCompressor.add_async`` is one
 ``compress.step`` span, and every call of a delta step that blocks the
 host on the device (a copy either way, a ``nonzero``, a ``tolist``) is a
-``sync.<site>`` span of its own: ``sync.upload`` here, the others where
-the call is made (ratios, select_b, ops, rans, chain).  Those stage
-syncs are not program syncs and stay outside the ``sync.*`` family.
+``sync.<site>`` span of its own, where the call is made (ratios,
+select_b, ops, rans, chain).  The stage syncs are not program syncs and
+stay outside the ``sync.*`` family.  The step's upload does not block:
+its host staging is the ``upload.stage`` span (`_upload`).
 """
 from __future__ import annotations
 
@@ -74,6 +75,26 @@ def _to_device(x, device: torch.device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device)
     return torch.tensor(np.asarray(x), device=device)
+
+
+def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A private copy of ``arr`` on ``device``, the bytes that
+    ``torch.tensor(arr, device=device)`` gives, without waiting for the
+    device.  torch's intra-op threads copy ``arr`` into a staging tensor
+    (pinned host memory for a CUDA device), which is sent whole on the
+    current stream; returns once ``arr`` has been read.  The caching host
+    allocator reuses a staging block only after the copy out of it has
+    ended.  An array ``torch.from_numpy`` refuses takes ``torch.tensor``."""
+    try:
+        src = torch.from_numpy(arr)     # a read-only array is only read
+    except (TypeError, ValueError):
+        return torch.tensor(arr, device=device)
+    stage = torch.empty(src.shape, dtype=src.dtype,
+                        pin_memory=device.type == "cuda")
+    stage.copy_(src)
+    out = torch.empty(src.shape, dtype=src.dtype, device=device)
+    out.copy_(stage, non_blocking=True)
+    return out
 
 
 def _sync(dev: torch.device) -> None:
@@ -552,12 +573,12 @@ class TemporalCompressor:
                                       label=f"anchor step {step_i}")
             on_device = self._chain.residency == chainmod.CHAIN_DEVICE
             # One upload of `curr`, shared by the encode and the chain
-            # advance; a private copy, since callers may reuse their
-            # buffers at once.
+            # advance; a private copy, read before `_upload` returns, since
+            # callers may reuse their buffers at once.
             curr_in = arr
             if on_device:
-                with telemetry.span("sync.upload"):
-                    curr_in = torch.tensor(arr, device=self.device)
+                with telemetry.span("upload.stage"):
+                    curr_in = _upload(arr, self.device)
             dev = encode_device(self._chain.peek(), curr_in, self.params,
                                 need_host_idx=not on_device,
                                 device=self.device)

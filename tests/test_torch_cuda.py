@@ -1244,3 +1244,54 @@ def test_cuda_every_sync_of_a_delta_step_is_a_sync_span(cuda):
     assert sorted(program) == recorded, (
         sorted(collections.Counter(n for n, _ in program).items()),
         sorted(collections.Counter(n for n, _ in recorded).items()))
+    # The staged upload waits nowhere: 13 waits a step, none an upload.
+    assert len(program) == 13 * len(steps)
+    assert "sync.upload" not in {n for n, _ in recorded}
+    assert sum(r.name == "upload.stage" for r in reg.spans) == len(steps)
+
+
+CMIP_PARAMS = dict(error_bound=1e-3, max_bins=65536, b_max=16,
+                   block_bytes=1 << 20, codec="rans")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["cmip", "stir"])
+def test_cuda_staged_upload_matches_torch_tensor(cuda, shape):
+    """The staged upload of a CMIP- and a Stir-shaped step gives the
+    tensor of ``torch.tensor(arr, device=cuda)`` bit for bit, with its
+    copy still queued behind a busy stream when the next upload stages and
+    the caller has overwritten both arrays: a staging block is not reused
+    under its copy."""
+    from repro_torch.core import compress
+
+    shape = {"cmip": (42, 360, 240), "stir": (64, 157, 157)}[shape]
+    rng = np.random.default_rng(2)
+    a, b = (rng.standard_normal(shape).astype(np.float32) for _ in "ab")
+    want = [torch.tensor(x, device=cuda) for x in (a, b)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)          # ~50 ms of a busy stream
+    got = []
+    for x in (a, b):
+        got.append(compress._upload(x, cuda))
+        x[...] = np.nan
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_overlap_steps_equal_serial_steps(cuda):
+    """Ten CMIP-shaped steps with the finalize overlapped give the serial
+    compressor's steps byte for byte: a step stages while the one before
+    is in flight."""
+    from repro_torch.core import compress
+    from repro_torch.core.types import NumarckParams
+
+    series = list(generate_series("cmip", n_iterations=10, seed=4))
+    params = NumarckParams(**CMIP_PARAMS)
+    serial = compress.compress_series(series, params, device=cuda)
+    overlapped = compress.compress_series(series, params, overlap=True,
+                                          device=cuda)
+    assert len(serial) == 10
+    _same_steps(overlapped, serial)

@@ -84,10 +84,11 @@ def _nck_bytes(writer_cls, steps, path) -> bytes:
     return path.read_bytes()
 
 
-# Span names of the port alone: its step, chain and entropy-stage spans
-# and the sync.* family (one span per call that blocks on the device).
-PORT_SPANS = {"compress.step", "chain.advance", "choose_b.model",
-              "entropy.tables", "entropy.assemble"}
+# Span names of the port alone: its step, upload, chain and entropy-stage
+# spans and the sync.* family (one span per call that blocks on the
+# device).
+PORT_SPANS = {"compress.step", "upload.stage", "chain.advance",
+              "choose_b.model", "entropy.tables", "entropy.assemble"}
 
 
 def _port_spans(names) -> set:
@@ -443,7 +444,7 @@ def test_rollup_structure_matches_the_reference():
     assert set(jroll["spans"]) <= set(roll["spans"])
     assert set(roll["spans"]) - set(jroll["spans"]) == {
         "encode.pack_fetch", "compress.step", "chain.advance",
-        "choose_b.model", "sync.upload", "sync.range", "sync.choose_b",
+        "choose_b.model", "upload.stage", "sync.range", "sync.choose_b",
         "sync.centers", "sync.exc_nonzero", "sync.exc_counts",
         "sync.exc_positions", "sync.packed", "sync.chain_centers"}
     assert roll["counters"] == jroll["counters"]
@@ -460,13 +461,14 @@ def test_rollup_structure_matches_the_reference():
 # ------------------------------------ the stream step's sync spans
 
 # The sync.* spans of one delta step on the device-rANS route with the
-# chain on the device, in order: the upload, the range pass, auto-B's
-# histogram, the top-k centers, the exception compaction's nonzero and
-# two copies, the sampled bytes, the frequency tables' upload, the coded
-# streams' masked select and three copies, the chain advance's centers:
-# one span for each of the 14 calls.  sync.signed_zero and sync.raw_block
-# depend on the data (test_data_dependent_sync_spans).
-DELTA_SYNCS = ["sync.upload", "sync.range", "sync.choose_b", "sync.centers",
+# chain on the device, in order: the range pass, auto-B's histogram, the
+# top-k centers, the exception compaction's nonzero and two copies, the
+# sampled bytes, the frequency tables' upload, the coded streams' masked
+# select and three copies, the chain advance's centers: one span for each
+# of the 13 calls.  The step's staged upload (upload.stage) waits for
+# nothing.  sync.signed_zero and sync.raw_block depend on the data
+# (test_data_dependent_sync_spans).
+DELTA_SYNCS = ["sync.range", "sync.choose_b", "sync.centers",
                "sync.exc_nonzero", "sync.exc_counts", "sync.exc_positions",
                "sync.samples", "sync.freq_up", "sync.stream_select",
                "sync.stream_states", "sync.stream_words",
@@ -512,13 +514,17 @@ def rans_step(tmp_path_factory):
 def test_delta_step_records_each_sync_in_order(rans_step):
     """Every blocking call of a delta step is its own sync.* span, in the
     order the program makes them, each inside the compress.step span and
-    none inside another sync.* span."""
+    none inside another sync.* span; the upload is one upload.stage span,
+    before them."""
     _, spans, _ = rans_step
     step = [r for r in spans if r.name == "compress.step"]
     assert len(step) == 1 and step[0].depth == 0
     syncs = sorted((r for r in spans if r.name.startswith("sync.")),
                    key=lambda r: r.t0)
     assert [r.name for r in syncs] == DELTA_SYNCS
+    stage = [r for r in spans if r.name == "upload.stage"]
+    assert len(stage) == 1 and stage[0].depth == 1
+    assert step[0].t0 <= stage[0].t0 <= stage[0].t1 <= syncs[0].t0
     for r in syncs:
         assert r.depth >= 1
         assert step[0].t0 <= r.t0 <= r.t1 <= step[0].t1
