@@ -319,6 +319,23 @@ class StepFragment:
     # the rank file stores `info` attrs only, mirroring CompressedStep.
     meta: dict = field(default_factory=dict)
 
+    @property
+    def nbytes(self) -> int:
+        """Payload size as ``ShardNCKWriter`` lays the fragment out: its
+        blobs and their offset table; for a delta step also its exception
+        counts and values, and the centers where it holds them."""
+        nb = len(self.index_blocks)
+        total = sum(len(b) for b in self.index_blocks) + 8 * (nb + 1)
+        if self.is_anchor:
+            return total
+        total += 8 * nb
+        if self.incomp_values is not None:
+            total += int(self.incomp_values.nbytes)
+        if self.centers is not None:
+            total += (int(self.centers.size)
+                      * step_dtype(self.info["dtype"]).itemsize)
+        return total
+
 
 def read_manifest(path: str) -> Optional[dict]:
     """Parse an NCKM manifest at `path`; None when absent or not a

@@ -18,8 +18,18 @@ first and then across processes, so both forms give the same result.
 Every reduction is exact: min and max of float32 values and sums of
 integers, so any backend order gives the same bits; no float is ever
 summed through a collective.  Only metadata crosses processes (two
-scalars, a histogram, one block of edge indices per step), staged through
-the host because gloo's point-to-point ops take CPU tensors.
+scalars, a histogram, and the part of a block that straddles a shard
+boundary, if any), staged through the host because gloo's ops take CPU
+tensors.
+
+Telemetry: each call is one span, from its local fold through its
+exchange to the copy back: ``coll.range`` (``allreduce_minmax``),
+``coll.hist`` (``allreduce_sum``), ``coll.edge``
+(``right_edge_exchange``) and ``coll.scan`` (``exclusive_scan_sum``),
+with the attributes ``bytes`` (what this process sends: 0 when the group
+has one process) and ``ranks``.  The blocking copy of a device tensor to
+the host inside one is a ``sync.coll_hist`` or ``sync.coll_edge`` span of
+its own.
 """
 from __future__ import annotations
 
@@ -28,6 +38,8 @@ from typing import List, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from repro_torch.obs import telemetry
 
 
 class ShardGroup:
@@ -78,14 +90,17 @@ def allreduce_minmax(los: Sequence, his: Sequence, group: ShardGroup):
     shards in order; across processes every rank's two ends are gathered
     and folded in rank order (a ``ReduceOp.MIN`` would keep either
     zero)."""
-    lo = min(float(v) for v in los)
-    hi = max(float(v) for v in his)
-    if group.distributed:
-        every = [torch.empty(2, dtype=torch.float32)
-                 for _ in range(group.num_ranks)]
-        dist.all_gather(every, torch.tensor([lo, hi], dtype=torch.float32))
-        lo = min(float(e[0]) for e in every)
-        hi = max(float(e[1]) for e in every)
+    with telemetry.span("coll.range", bytes=8 if group.distributed else 0,
+                        ranks=group.num_ranks):
+        lo = min(float(v) for v in los)
+        hi = max(float(v) for v in his)
+        if group.distributed:
+            every = [torch.empty(2, dtype=torch.float32)
+                     for _ in range(group.num_ranks)]
+            dist.all_gather(every, torch.tensor([lo, hi],
+                                                dtype=torch.float32))
+            lo = min(float(e[0]) for e in every)
+            hi = max(float(e[1]) for e in every)
     return np.float32(lo), np.float32(hi)
 
 
@@ -96,13 +111,19 @@ def allreduce_sum(xs: Sequence[torch.Tensor], group: ShardGroup
         raise TypeError("allreduce_sum takes integer tensors only: a float "
                         "sum would depend on the reduction order")
     dev = xs[0].device
-    total = xs[0].clone()
-    for x in xs[1:]:
-        total += x.to(dev)
-    if group.distributed:
-        host = total.to("cpu", torch.int64)
-        dist.all_reduce(host, op=dist.ReduceOp.SUM)
-        total = host.to(dev, total.dtype)
+    with telemetry.span("coll.hist", ranks=group.num_ranks) as sp:
+        total = xs[0].clone()
+        for x in xs[1:]:
+            total += x.to(dev)
+        sent = 0
+        if group.distributed:
+            # Cast on the device both ways: the host only copies.
+            with telemetry.span("sync.coll_hist"):
+                host = total.to(torch.int64).cpu()
+            dist.all_reduce(host, op=dist.ReduceOp.SUM)
+            sent = host.nbytes
+            total = host.to(dev).to(total.dtype)
+        sp.set(bytes=sent)
     return total
 
 
@@ -110,12 +131,14 @@ def exclusive_scan_sum(xs: Sequence[int], group: ShardGroup) -> List[int]:
     """MPI_Exscan analogue: for each local shard, the sum of ``xs`` over
     every lower-ranked shard (integers)."""
     local = [int(x) for x in xs]
-    if group.distributed:
-        every = [None] * group.num_ranks
-        dist.all_gather_object(every, local)
-        flat = [v for part in every for v in part]
-    else:
-        flat = local
+    sent = 8 * len(local) if group.distributed else 0
+    with telemetry.span("coll.scan", bytes=sent, ranks=group.num_ranks):
+        if group.distributed:
+            every = [None] * group.num_ranks
+            dist.all_gather_object(every, local)
+            flat = [v for part in every for v in part]
+        else:
+            flat = local
     prefix = np.concatenate([[0], np.cumsum(flat, dtype=np.int64)])
     return [int(prefix[group.first + j]) for j in range(len(local))]
 
@@ -125,27 +148,35 @@ def right_edge_exchange(heads: Sequence[torch.Tensor], group: ShardGroup,
     """Every shard receives the *head* slice of its right neighbour.
 
     The paper's "index alignment": a block straddling a shard boundary is
-    completed from the right neighbour's first elements.  The last shard
-    of the last process receives ``fill``.  Across processes the head of
-    each process's first shard goes to the process before it.
+    completed from the right neighbour's first elements.  ``heads[j]`` is
+    what the shard before local shard j needs, and ``fill`` has the length
+    that the last local shard needs from its right, which the last shard
+    of the last process receives as it is.  Across processes the head of
+    each process's first shard goes to the process before it; an empty
+    head (no block straddles that boundary) crosses nothing.
     """
     recv: List[torch.Tensor] = list(heads[1:])
-    last = group.n_local - 1
-    if group.distributed:
-        reqs = []
-        if group.rank > 0:
-            send = heads[0].cpu().contiguous()
-            reqs.append(dist.isend(send, group.rank - 1))
-        buf = None
-        if group.rank < group.num_ranks - 1:
-            buf = torch.empty(heads[last].shape, dtype=heads[last].dtype)
-            reqs.append(dist.irecv(buf, group.rank + 1))
-        for req in reqs:
-            req.wait()
-        recv.append(fill if buf is None else buf)
-    else:
-        recv.append(fill)
-    return [r.to(group.devices[j]) for j, r in enumerate(recv)]
+    with telemetry.span("coll.edge", ranks=group.num_ranks) as sp:
+        sent = 0
+        if group.distributed:
+            reqs = []
+            if group.rank > 0 and heads[0].numel():
+                with telemetry.span("sync.coll_edge"):
+                    send = heads[0].cpu().contiguous()
+                sent = send.nbytes
+                reqs.append(dist.isend(send, group.rank - 1))
+            buf = None
+            if group.rank < group.num_ranks - 1:
+                buf = torch.empty(fill.shape, dtype=fill.dtype)
+                if buf.numel():
+                    reqs.append(dist.irecv(buf, group.rank + 1))
+            for req in reqs:
+                req.wait()
+            recv.append(fill if buf is None else buf)
+        else:
+            recv.append(fill)
+        sp.set(bytes=sent)
+        return [r.to(group.devices[j]) for j, r in enumerate(recv)]
 
 
 __all__ = ["ShardGroup", "allreduce_minmax", "allreduce_sum", "axis_size",

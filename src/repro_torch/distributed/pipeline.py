@@ -16,12 +16,14 @@ a CPU device).  Phases, 1:1 with the paper:
   3. indexing                  -- rank-LUT lookup per shard.
   4. index alignment           -- block boundaries are static (shard s
      holds elements [s*ln, (s+1)*ln)); the block straddling a shard
-     boundary is completed by ``right_edge_exchange``, so each shard owns
-     the blocks that start inside it.
+     boundary is completed by ``right_edge_exchange`` (only its part
+     past the boundary crosses it), so each shard owns the blocks that
+     start inside it.
   5. bits packing              -- one bit-pack launch per shard over its
      owned blocks, which are contiguous in its extended table.
   6. entropy coding            -- the shared host finalize, or with
-     ``codec="rans"`` the rANS encode kernel per shard.
+     ``codec="rans"`` the rANS encode kernel per shard (in every driver
+     here, multi-process included).
 
 The REF_RECONSTRUCTED chain stays sharded on the devices between steps,
 advanced per shard by the dequantize kernel (``_ShardedDeviceChain``).
@@ -133,6 +135,12 @@ class _Layout:
         or after its first element), clipped to the step's blocks."""
         return min(-(-(s * self.ln) // self.be), self.nblocks)
 
+    def reach(self, s: int) -> int:
+        """Elements past shard s's end that its owned blocks cover: the
+        part of the block straddling its right edge, 0 where its blocks
+        end on the edge."""
+        return max(0, self.first_block(s + 1) * self.be - (s + 1) * self.ln)
+
 
 @dataclass
 class _ShardOut:
@@ -241,9 +249,12 @@ class ShardedCompressor:
                 idx_sh.append(comp._encode_topk(ids, ids_desc.to(d),
                                                 lay.b_bits, k_eff,
                                                 p.max_bins))
-        fill = torch.full((lay.be,), marker, dtype=torch.int32)
-        edges = coll.right_edge_exchange([x[:lay.be] for x in idx_sh], g,
-                                         fill)
+        # Each head is what the shard before it needs; nothing crosses a
+        # boundary that no block straddles.
+        heads = [x[:lay.reach(g.first + j - 1)] for j, x in enumerate(idx_sh)]
+        fill = torch.full((lay.reach(g.first + g.n_local - 1),), marker,
+                          dtype=torch.int32)
+        edges = coll.right_edge_exchange(heads, g, fill)
         outs = []
         for j, (idx, edge) in enumerate(zip(idx_sh, edges)):
             s = g.first + j
@@ -293,6 +304,21 @@ class ShardedCompressor:
                 blobs += rans.compress_blocks_device(
                     o.owned.contiguous(), lay.b_bits, o.nown, lay.be)
         return blobs
+
+    def _code_or_pack(self, outs: List[_ShardOut], lay: _Layout):
+        """Phases 5-6 on the shards where ``device_entropy_route`` holds
+        (coded blobs), else phase 5 alone (packed bytes for the host
+        coder).  -> (coded, raws, device entropy s, pack s)."""
+        coded = raws = None
+        with telemetry.span("encode.device_entropy") as sp_de:
+            if comp.device_entropy_route(self.params, lay.n, lay.b_bits):
+                coded = self._entropy_stage(outs, lay)
+        pack_s = 0.0
+        if coded is None:
+            with telemetry.span("encode.pack_fetch") as sp_pack:
+                raws = self._pack(outs, lay)
+            pack_s = sp_pack.duration
+        return coded, raws, sp_de.duration, pack_s
 
     def _encode_common(self, prev, curr: np.ndarray,
                        b_bits: Optional[int]):
@@ -347,16 +373,7 @@ class ShardedCompressor:
         the finalize and the reference chain consume."""
         a, lay, outs, centers, meta, curr_sh, stage_s = self._encode_common(
             prev, curr, b_bits)
-        raws = coded = coded_name = None
-        with telemetry.span("encode.device_entropy") as sp_de:
-            if comp.device_entropy_route(self.params, lay.n, lay.b_bits):
-                coded = self._entropy_stage(outs, lay)
-                coded_name = self.params.codec
-        pack_s = 0.0
-        if coded is None:
-            with telemetry.span("encode.pack_fetch") as sp_pack:
-                raws = self._pack(outs, lay)
-            pack_s = sp_pack.duration
+        coded, raws, de_s, pack_s = self._code_or_pack(outs, lay)
         host_chain = (self._chain is not None
                       and self._chain.residency == chainmod.CHAIN_HOST)
         with telemetry.span("encode.idx_fetch") as sp_fetch:
@@ -365,7 +382,8 @@ class ShardedCompressor:
                 idx = torch.cat([o.idx.cpu() for o in outs]).numpy()[:lay.n]
         enc = pipe.EncodedIndices(
             idx=idx, b_bits=lay.b_bits, block_elems=lay.be, n=lay.n,
-            packed=raws, entropy_coded=coded, entropy_codec=coded_name,
+            packed=raws, entropy_coded=coded,
+            entropy_codec=None if coded is None else self.params.codec,
             exc_positions=np.concatenate([o.exc_pos for o in outs]),
             exc_block_counts=np.concatenate([o.exc_counts for o in outs]))
         if telemetry.enabled():
@@ -374,7 +392,7 @@ class ShardedCompressor:
             meta["telemetry"] = {
                 "analyze_s": stage_s["analyze_s"],
                 "encode_s": stage_s["encode_s"] + pack_s + sp_fetch.duration,
-                "device_entropy_s": sp_de.duration,
+                "device_entropy_s": de_s,
             }
         return DeviceEncoded(enc=enc, centers=centers,
                              domain_lo=float(a["domain_lo"]),
@@ -621,12 +639,17 @@ class MultiProcessCompressor(ShardedCompressor):
     manifest.
 
     Every process holds the same host input (SPMD).  Exceptions and the
-    host entropy stage run per process over its own blocks, so payload
-    bytes never cross processes.  Blobs are byte-identical to the
-    single-process driver for every concrete codec (``codec="auto"``
-    picks per block from a global budget the ranks cannot see, so it is
-    only split-identical).  The reference chain must be device-resident.
-    ``torch.distributed`` must be initialized (``launch.distributed``).
+    entropy stage run per process over its own blocks, so payload bytes
+    never cross processes: on this process's cards (the rANS encode
+    kernel) where ``compress.device_entropy_route`` holds for the whole
+    step, which every rank decides alike, else on its host coder (small
+    steps, ``codec="auto"``, ``device_entropy=False``, and the anchor).
+    Blobs are byte-identical to the single-process driver over as many
+    shards for every concrete codec (``codec="auto"`` picks per block
+    from a global budget the ranks cannot see, so it is only
+    split-identical).  The reference chain must be device-resident.
+    ``torch.distributed`` must be initialized (``launch.distributed``);
+    a fleet of one rank a card gives each rank its card as ``"cuda"``.
     """
 
     _pipeline = "multiprocess"
@@ -636,10 +659,10 @@ class MultiProcessCompressor(ShardedCompressor):
                  params: NumarckParams = NumarckParams(),
                  overlap: bool = False, chain: str = chainmod.CHAIN_AUTO):
         if params.symbol_rans:
-            raise ValueError("symbol-level rANS blobs come from the device "
-                             "entropy stage; the multi-process driver "
-                             "entropy-codes per host (set symbol_rans="
-                             "False)")
+            raise ValueError("symbol-level rANS blobs code the whole "
+                             "index table; the multi-process driver codes "
+                             "each rank's packed blocks, as v1 blobs on its "
+                             "cards or on its host (set symbol_rans=False)")
         if chain == chainmod.CHAIN_HOST:
             raise ValueError("multi-process compression needs the device-"
                              "resident reference chain (chain='host' "
@@ -657,19 +680,21 @@ class MultiProcessCompressor(ShardedCompressor):
         return _ShardedDeviceChain(self)
 
     def _device_encode_local(self, prev, curr: np.ndarray):
-        """Phases 1-5 over every process's shards; this process keeps
-        only its own packed blocks and exceptions."""
+        """Phases 1-5 over every process's shards, and phase 6 on this
+        process's cards where ``device_entropy_route`` holds; this process
+        keeps only its own blocks (coded, or packed for the host coder)
+        and exceptions."""
         a, lay, outs, centers, meta, curr_sh, stage_s = self._encode_common(
             prev, curr, None)
         meta.update(rank=self.rank, num_ranks=self.num_ranks)
-        with telemetry.span("encode.pack_fetch") as sp_pack:
-            raws = self._pack(outs, lay)
+        coded, raws, de_s, pack_s = self._code_or_pack(outs, lay)
         if telemetry.enabled():
             meta["telemetry"] = {
                 "analyze_s": stage_s["analyze_s"],
-                "encode_s": stage_s["encode_s"] + sp_pack.duration,
+                "encode_s": stage_s["encode_s"] + pack_s,
+                "device_entropy_s": de_s,
             }
-        local = {"raws": raws,
+        local = {"raws": raws, "coded": coded,
                  "block_start": outs[0].g0, "nblocks": lay.nblocks,
                  "exc_pos": np.concatenate([o.exc_pos for o in outs]),
                  "exc_counts": np.concatenate([o.exc_counts for o in outs])}
@@ -683,8 +708,9 @@ class MultiProcessCompressor(ShardedCompressor):
 
     def _fragment_finalize(self, curr: np.ndarray, dev: DeviceEncoded,
                            local: dict) -> StepFragment:
-        """Per-rank finalize: this rank's exception values and host
-        entropy over its own blocks; block for block byte-identical to
+        """Per-rank finalize: this rank's exception values and its own
+        blocks, taken as the device entropy stage coded them or coded
+        here by the host coder; block for block byte-identical to
         ``core.pipeline.finalize_step`` on the concatenated fragments."""
         p = self.params
         curr = np.asarray(curr)
@@ -696,10 +722,13 @@ class MultiProcessCompressor(ShardedCompressor):
             with telemetry.span("finalize.exceptions") as sp_exc:
                 values = curr.reshape(-1)[local["exc_pos"]].astype(
                     curr.dtype, copy=False)
-            raws = local["raws"]
+            raws, blks = local["raws"], local["coded"]
+            device_entropy = blks is not None
             block_codecs: Optional[List[str]] = None
             with telemetry.span("finalize.entropy") as sp_ent:
-                if p.codec == entropy.AUTO_CODEC and len(raws) > 1:
+                if device_entropy:
+                    codec = p.codec
+                elif p.codec == entropy.AUTO_CODEC and len(raws) > 1:
                     per = entropy.choose_block_codecs(raws, p.zlib_level)
                     if len(set(per)) > 1:
                         codec = pipe._primary_codec(per)
@@ -722,7 +751,8 @@ class MultiProcessCompressor(ShardedCompressor):
             centers = dev.centers
             if centers.size > marker:
                 centers = centers[:marker]
-            bytes_in = sum(len(r) for r in raws)
+            bytes_in = (len(blks) * (be * bb // 8) if device_entropy
+                        else sum(len(r) for r in raws))
             bytes_out = sum(len(b) for b in blks)
             sp_fin.set(codec=codec, bytes_in=bytes_in, bytes_out=bytes_out)
         info = dict(
@@ -743,11 +773,12 @@ class MultiProcessCompressor(ShardedCompressor):
                 "analyze_s": float(drv_tele.get("analyze_s", 0.0)),
                 "encode_s": float(drv_tele.get("encode_s", 0.0)),
                 "exceptions_s": sp_exc.duration,
-                "entropy_s": sp_ent.duration,
+                "entropy_s": (float(drv_tele.get("device_entropy_s", 0.0))
+                              if device_entropy else sp_ent.duration),
                 "finalize_s": sp_fin.duration,
                 "bytes_in": bytes_in, "bytes_out": bytes_out,
                 "entropy_ratio": bytes_in / max(bytes_out, 1),
-                "codec": codec, "device_entropy": False,
+                "codec": codec, "device_entropy": device_entropy,
             }
         frag.meta = meta
         return frag

@@ -16,12 +16,16 @@ ways into the same code path:
 
 The collectives backend is gloo: NCCL refuses two ranks on one device,
 and only metadata crosses ranks (``distributed.collectives``), staged
-through the host.  Spawned ranks get the runtime preset
-(``launch/runtime_env.py``: tcmalloc where the host has it, torch's C++
-logs kept to errors) unless the caller turns it off.  ``global_mesh``
-gives a 1-D ``DeviceMesh`` over every rank; a process that is not part of
-a fleet joins a one-rank group for it.  Importing this module starts
-nothing.
+through the host, so gloo is also the backend of a fleet with one rank a
+card.  Each spawned rank sees one card, as a launcher that gives a task
+one GPU arranges it (``CUDA_VISIBLE_DEVICES``, ``rank_card``): rank r
+the r-th card the launcher sees, round robin, so ranks share a card only
+on a host with fewer cards than ranks, and ``"cuda"`` names a rank's own
+card.  Spawned ranks get the runtime preset (``launch/runtime_env.py``:
+tcmalloc where the host has it, torch's C++ logs kept to errors) unless
+the caller turns it off.  ``global_mesh`` gives a 1-D ``DeviceMesh`` over
+every rank; a process that is not part of a fleet joins a one-rank group
+for it.  Importing this module starts nothing.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
+import torch
 import torch.distributed as dist
 
 from repro_torch.faults.retry import Backoff
@@ -41,6 +46,7 @@ from repro_torch.launch.runtime_env import runtime_env
 ENV_COORDINATOR = "REPRO_COORDINATOR"
 ENV_NUM_PROCESSES = "REPRO_NUM_PROCESSES"
 ENV_PROCESS_ID = "REPRO_PROCESS_ID"
+ENV_VISIBLE_CARDS = "CUDA_VISIBLE_DEVICES"
 HOST = "127.0.0.1"
 
 # A fleet that died because the coordinator could not bind its probed port
@@ -144,6 +150,32 @@ def rank_env(rank: int, num_processes: int, coordinator: str, *,
     return env
 
 
+def rank_card(rank: int, environ: Optional[Dict[str, str]] = None
+              ) -> Optional[str]:
+    """The one card emulated rank `rank` sees: round robin over the cards
+    of the launcher's ``CUDA_VISIBLE_DEVICES`` (in `environ`, default the
+    process's), else over every card of the host; None without a card."""
+    env = os.environ if environ is None else environ
+    visible = env.get(ENV_VISIBLE_CARDS)
+    if visible is None:
+        cards = [str(i) for i in range(torch.cuda.device_count())]
+    else:
+        cards = [c.strip() for c in visible.split(",") if c.strip()]
+    return cards[rank % len(cards)] if cards else None
+
+
+def _spawn_env(rank: int, num_processes: int, coordinator: str,
+               base_env: Optional[Dict[str, str]], preset: bool
+               ) -> Dict[str, str]:
+    """``rank_env`` with the rank's one card (``rank_card``)."""
+    env = rank_env(rank, num_processes, coordinator, base=base_env,
+                   preset=preset)
+    card = rank_card(rank, base_env)
+    if card is not None:
+        env[ENV_VISIBLE_CARDS] = card
+    return env
+
+
 def _coordinator_bind_failed(results: List[subprocess.CompletedProcess]
                              ) -> bool:
     """Did this fleet die on the coordinator-port bind race?"""
@@ -161,8 +193,7 @@ def _spawn_once(num_processes: int, argv: Sequence[str], coordinator: str,
                 timeout: float) -> List[subprocess.CompletedProcess]:
     procs = [subprocess.Popen(
         [sys.executable, *argv],
-        env=rank_env(rank, num_processes, coordinator, base=base_env,
-                     preset=preset),
+        env=_spawn_env(rank, num_processes, coordinator, base_env, preset),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for rank in range(num_processes)]
     deadline = time.monotonic() + timeout
@@ -192,7 +223,8 @@ def spawn_emulated(num_processes: int, argv: Sequence[str], *,
     nonzero exits (``check_spawned`` does).  A fleet that failed to bind
     its coordinator port is relaunched with a fresh one, up to
     ``bind_attempts`` times with jittered backoff.  `preset` applies the
-    runtime preset to every rank's environment (``rank_env``)."""
+    runtime preset to every rank's environment (``rank_env``); each rank
+    sees one card (``rank_card``)."""
     results: List[subprocess.CompletedProcess] = []
     delays = Backoff(attempts=max(1, bind_attempts) - 1, base=0.1).delays()
     for _ in range(max(1, bind_attempts)):
@@ -219,5 +251,6 @@ def check_spawned(results: List[subprocess.CompletedProcess]) -> None:
 
 __all__ = ["DistributedConfig", "env_config", "initialize", "shutdown",
            "join_alone", "global_mesh", "process_rank", "process_count",
-           "free_port", "rank_env", "spawn_emulated", "check_spawned",
-           "ENV_COORDINATOR", "ENV_NUM_PROCESSES", "ENV_PROCESS_ID"]
+           "free_port", "rank_env", "rank_card", "spawn_emulated",
+           "check_spawned", "ENV_COORDINATOR", "ENV_NUM_PROCESSES",
+           "ENV_PROCESS_ID", "ENV_VISIBLE_CARDS"]

@@ -1295,3 +1295,75 @@ def test_cuda_overlap_steps_equal_serial_steps(cuda):
                                           device=cuda)
     assert len(serial) == 10
     _same_steps(overlapped, serial)
+
+
+_MP4_WORKER = """
+import pickle, sys
+import torch
+from repro_torch.launch import distributed as ld
+cfg = ld.initialize()
+from repro_torch.core.types import NumarckParams
+from repro_torch.data.temporal import generate_series
+from repro_torch.distributed.pipeline import MultiProcessCompressor
+from repro_torch.kernels import rans
+rans.DEVICE_MIN_BYTES = 0
+series = list(generate_series("cmip", 4, seed=2, scale=2))
+mp = MultiProcessCompressor(["cuda"], NumarckParams(codec="rans"))
+frags = mp.compress_series_fragments(series)
+mp.close()
+out = dict(cards=torch.cuda.device_count(),
+           uuid=str(torch.cuda.get_device_properties(0).uuid),
+           launches=rans.ENCODE.launches,
+           frags=[(f.block_start, f.index_blocks, f.incomp_values, f.centers)
+                  for f in frags[1:]])
+ld.shutdown()
+with open(sys.argv[1] + ".rank%d" % cfg.process_id, "wb") as f:
+    pickle.dump(out, f)
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_four_ranks_on_four_cards_match_one_card(cuda, tmp_path,
+                                                      monkeypatch):
+    """Four gloo ranks, one card each (the launcher's CUDA_VISIBLE_DEVICES),
+    through the device rANS route: their fragments joined in rank order
+    equal ShardedCompressor over four shards of one card, byte for byte,
+    and each rank launched the rANS encode once a delta step on a card of
+    its own."""
+    import os
+    import pickle
+
+    from repro_torch.data.temporal import generate_series
+    from repro_torch.distributed.pipeline import ShardedCompressor
+    from repro_torch.launch import distributed as ld
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    from repro_torch.kernels import _build
+    _build.build()
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    env.pop("REPRO_FAULTS", None)
+    out = str(tmp_path / "out")
+    ld.check_spawned(ld.spawn_emulated(4, ["-c", _MP4_WORKER, out],
+                                       base_env=env, timeout=600))
+    ranks = []
+    for r in range(4):
+        with open(f"{out}.rank{r}", "rb") as f:
+            ranks.append(pickle.load(f))
+    assert [rk["cards"] for rk in ranks] == [1] * 4
+    assert len({rk["uuid"] for rk in ranks}) == 4
+    monkeypatch.setattr(rans, "DEVICE_MIN_BYTES", 0)
+    series = list(generate_series("cmip", 4, seed=2, scale=2))
+    sc = ShardedCompressor([cuda] * 4, repro_torch.NumarckParams(
+        codec="rans"))
+    want = sc.compress_series(series)[1:]
+    sc.close()
+    for i, st in enumerate(want):
+        frags = [rk["frags"][i] for rk in ranks]
+        assert [b for f in frags for b in f[1]] == st.index_blocks
+        np.testing.assert_array_equal(np.concatenate([f[2] for f in frags]),
+                                      st.incomp_values)
+        np.testing.assert_array_equal(frags[0][3], st.centers)
+    assert [rk["launches"] for rk in ranks] == [len(want)] * 4

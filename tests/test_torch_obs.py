@@ -85,14 +85,15 @@ def _nck_bytes(writer_cls, steps, path) -> bytes:
 
 
 # Span names of the port alone: its step, upload, chain and entropy-stage
-# spans and the sync.* family (one span per call that blocks on the
-# device).
+# spans, the sync.* family (one span per call that blocks on the device)
+# and the coll.* family (one span per collective call).
 PORT_SPANS = {"compress.step", "upload.stage", "chain.advance",
               "choose_b.model", "entropy.tables", "entropy.assemble"}
 
 
 def _port_spans(names) -> set:
-    return {n for n in names if n in PORT_SPANS or n.startswith("sync.")}
+    return {n for n in names
+            if n in PORT_SPANS or n.startswith(("sync.", "coll."))}
 
 
 def _lane_kinds(doc) -> set:
@@ -300,7 +301,8 @@ def test_sharded_driver_same_telemetry_shape_and_blobs(overlap):
     assert set(roll["spans"]) - _port_spans(roll["spans"]) \
         == set(jroll["spans"])
     assert _port_spans(roll["spans"]) == {"sync.range", "sync.choose_b",
-                                          "choose_b.model"}
+                                          "choose_b.model", "coll.range",
+                                          "coll.hist", "coll.edge"}
     assert roll["counters"] == jroll["counters"]
     for name, agg in jroll["spans"].items():
         assert roll["spans"][name]["count"] == agg["count"], name
