@@ -14,18 +14,23 @@ ways into the same code path:
     on 127.0.0.1, so the two-process tests run the identical
     initialize/driver path a real fleet uses.
 
-The collectives backend is gloo: NCCL refuses two ranks on one device,
-and only metadata crosses ranks (``distributed.collectives``), staged
-through the host, so gloo is also the backend of a fleet with one rank a
-card.  Each spawned rank sees one card, as a launcher that gives a task
-one GPU arranges it (``CUDA_VISIBLE_DEVICES``, ``rank_card``): rank r
-the r-th card the launcher sees, round robin, so ranks share a card only
-on a host with fewer cards than ranks, and ``"cuda"`` names a rank's own
-card.  Spawned ranks get the runtime preset (``launch/runtime_env.py``:
-tcmalloc where the host has it, torch's C++ logs kept to errors) unless
-the caller turns it off.  ``global_mesh`` gives a 1-D ``DeviceMesh`` over
-every rank; a process that is not part of a fleet joins a one-rank group
-for it.  Importing this module starts nothing.
+The default group's backend is gloo, which takes ranks that share a card
+(NCCL refuses two ranks on one device) and CPU tensors: it carries the
+barriers, the object gathers, the checkpoint, train and serve clients'
+exchanges and, staged through the host, the compressor's edge exchange
+and scan.  On a fleet of one rank a card the compressor's range and
+histogram Allreduces leave it for an NCCL subgroup on the cards, which
+``distributed.collectives.ShardGroup`` makes from the card identities
+it gathers.  Each spawned rank sees one card, as a launcher that gives a
+task one GPU arranges it (``CUDA_VISIBLE_DEVICES``, ``rank_card``): rank
+r the r-th card the launcher sees, round robin, so ranks share a card
+only on a host with fewer cards than ranks, and ``"cuda"`` names a
+rank's own card.  Spawned ranks get the runtime preset
+(``launch/runtime_env.py``: tcmalloc where the host has it, torch's C++
+logs kept to errors) unless the caller turns it off.  ``global_mesh``
+gives a 1-D ``DeviceMesh`` over every rank; a process that is not part
+of a fleet joins a one-rank group for it.  Importing this module starts
+nothing.
 """
 from __future__ import annotations
 

@@ -1297,7 +1297,7 @@ def test_cuda_overlap_steps_equal_serial_steps(cuda):
     _same_steps(overlapped, serial)
 
 
-_MP4_WORKER = """
+_MP_WORKER = """
 import pickle, sys
 import torch
 from repro_torch.launch import distributed as ld
@@ -1306,14 +1306,18 @@ from repro_torch.core.types import NumarckParams
 from repro_torch.data.temporal import generate_series
 from repro_torch.distributed.pipeline import MultiProcessCompressor
 from repro_torch.kernels import rans
+from repro_torch.obs import telemetry
 rans.DEVICE_MIN_BYTES = 0
 series = list(generate_series("cmip", 4, seed=2, scale=2))
 mp = MultiProcessCompressor(["cuda"], NumarckParams(codec="rans"))
-frags = mp.compress_series_fragments(series)
+with telemetry.capture() as reg:
+    frags = mp.compress_series_fragments(series)
 mp.close()
 out = dict(cards=torch.cuda.device_count(),
            uuid=str(torch.cuda.get_device_properties(0).uuid),
-           launches=rans.ENCODE.launches,
+           launches=rans.ENCODE.launches, backend=mp.group.backend,
+           spans=[(s.name, dict(s.attrs)) for s in reg.spans
+                  if s.name.startswith(("coll.", "sync.coll"))],
            frags=[(f.block_start, f.index_blocks, f.incomp_values, f.centers)
                   for f in frags[1:]])
 ld.shutdown()
@@ -1322,48 +1326,103 @@ with open(sys.argv[1] + ".rank%d" % cfg.process_id, "wb") as f:
 """
 
 
-@pytest.mark.cuda
-def test_cuda_four_ranks_on_four_cards_match_one_card(cuda, tmp_path,
-                                                      monkeypatch):
-    """Four gloo ranks, one card each (the launcher's CUDA_VISIBLE_DEVICES),
-    through the device rANS route: their fragments joined in rank order
-    equal ShardedCompressor over four shards of one card, byte for byte,
-    and each rank launched the rANS encode once a delta step on a card of
-    its own."""
+def _mp_fleet(cuda, tmp_path, monkeypatch, ranks, cards=None):
+    """``ranks`` ranks of ``_MP_WORKER`` (the launcher's cards, or the
+    cards named in ``cards``, round robin), each rank's record; and
+    ShardedCompressor's delta steps over as many shards of one card."""
     import os
     import pickle
 
-    from repro_torch.data.temporal import generate_series
     from repro_torch.distributed.pipeline import ShardedCompressor
     from repro_torch.launch import distributed as ld
 
-    if torch.cuda.device_count() < 4:
-        pytest.skip("needs four CUDA devices")
     from repro_torch.kernels import _build
     _build.build()
     src = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "src")
     env = dict(os.environ, PYTHONPATH=src)
     env.pop("REPRO_FAULTS", None)
+    if cards is not None:
+        env[ld.ENV_VISIBLE_CARDS] = cards
     out = str(tmp_path / "out")
-    ld.check_spawned(ld.spawn_emulated(4, ["-c", _MP4_WORKER, out],
+    ld.check_spawned(ld.spawn_emulated(ranks, ["-c", _MP_WORKER, out],
                                        base_env=env, timeout=600))
-    ranks = []
-    for r in range(4):
+    got = []
+    for r in range(ranks):
         with open(f"{out}.rank{r}", "rb") as f:
-            ranks.append(pickle.load(f))
-    assert [rk["cards"] for rk in ranks] == [1] * 4
-    assert len({rk["uuid"] for rk in ranks}) == 4
+            got.append(pickle.load(f))
     monkeypatch.setattr(rans, "DEVICE_MIN_BYTES", 0)
     series = list(generate_series("cmip", 4, seed=2, scale=2))
-    sc = ShardedCompressor([cuda] * 4, repro_torch.NumarckParams(
+    sc = ShardedCompressor([cuda] * ranks, repro_torch.NumarckParams(
         codec="rans"))
     want = sc.compress_series(series)[1:]
     sc.close()
+    return got, want
+
+
+def _joined_equal(ranks, want):
+    """The ranks' fragments joined in rank order are ``want``, byte for
+    byte, and each rank launched the rANS encode once a delta step."""
     for i, st in enumerate(want):
         frags = [rk["frags"][i] for rk in ranks]
         assert [b for f in frags for b in f[1]] == st.index_blocks
         np.testing.assert_array_equal(np.concatenate([f[2] for f in frags]),
                                       st.incomp_values)
         np.testing.assert_array_equal(frags[0][3], st.centers)
-    assert [rk["launches"] for rk in ranks] == [len(want)] * 4
+    assert [rk["launches"] for rk in ranks] == [len(want)] * len(ranks)
+
+
+def _backends(rank) -> dict:
+    """Span name -> the set of its ``backend`` attributes."""
+    out: dict = {}
+    for name, attrs in rank["spans"]:
+        out.setdefault(name, set()).add(attrs.get("backend"))
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_four_ranks_on_four_cards_match_one_card(cuda, tmp_path,
+                                                      monkeypatch):
+    """Four ranks, one card each (the launcher's CUDA_VISIBLE_DEVICES),
+    through the device rANS route: their range and histogram Allreduces
+    go through NCCL on the cards (no host staging of the histogram), and
+    their fragments joined in rank order equal ShardedCompressor over
+    four shards of one card, byte for byte, each rank having launched the
+    rANS encode once a delta step on a card of its own."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    ranks, want = _mp_fleet(cuda, tmp_path, monkeypatch, 4)
+    assert [rk["cards"] for rk in ranks] == [1] * 4
+    assert len({rk["uuid"] for rk in ranks}) == 4
+    for rk in ranks:
+        assert rk["backend"] == "nccl"
+        by = _backends(rk)
+        assert by["coll.range"] == {"nccl"} and by["coll.hist"] == {"nccl"}
+        assert by["coll.edge"] == {"gloo"}
+        assert "sync.coll_hist" not in by
+        assert "sync.coll_range" in by
+        assert {a["bytes"] for n, a in rk["spans"]
+                if n == "coll.hist"} == {
+            repro_torch.NumarckParams().max_bins * 8}
+    _joined_equal(ranks, want)
+
+
+@pytest.mark.cuda
+def test_cuda_two_ranks_sharing_a_card_take_gloo(cuda, tmp_path,
+                                                 monkeypatch):
+    """Two ranks on one card (a CUDA_VISIBLE_DEVICES that names one card),
+    which NCCL refuses: their collectives stay on gloo, staged through the
+    host, and their joined fragments equal ShardedCompressor over two
+    shards of one card, byte for byte."""
+    from repro_torch.launch import distributed as ld
+
+    ranks, want = _mp_fleet(cuda, tmp_path, monkeypatch, 2,
+                            cards=ld.rank_card(0))
+    assert len({rk["uuid"] for rk in ranks}) == 1
+    for rk in ranks:
+        assert rk["backend"] == "gloo"
+        by = _backends(rk)
+        assert all(b == {"gloo"} for n, b in by.items()
+                   if n.startswith("coll."))
+        assert "sync.coll_hist" in by and "sync.coll_range" not in by
+    _joined_equal(ranks, want)

@@ -36,6 +36,14 @@ RANKS, N, STEPS = 4, 30_717, 4
 # as in the four-rank CMIP cell.
 LAYOUTS = {"straddling": 1024, "shrunk": 1 << 20}
 MAX_BINS = 4096
+# Each rank's (lo, hi) range ends, per case: ties of -0 and +0 go to the
+# lower rank's zero; an infinite end is a rank with no valid ratio.
+ENDS = [
+    ([0.0, -0.0, 0.0, 1.0], [0.5, -0.0, 0.5, 0.25]),
+    ([-0.0, 0.0, -0.0, 2.0], [-0.0, 0.0, -1.0, -0.0]),
+    ([float("inf"), -3.5, float("inf"), -3.5],
+     [float("-inf"), 7.0, 7.0, float("-inf")]),
+]
 
 _WORKER = textwrap.dedent("""
     import pickle, sys
@@ -75,10 +83,30 @@ _WORKER = textwrap.dedent("""
                         tele=f.meta.get("telemetry"))
                    for f in frags],
             spans=[(s.name, s.depth, dict(s.attrs)) for s in reg.spans])
+    # The card path's fold and sum, carried by a gloo subgroup on CPU
+    # tensors, beside the host path on the same values.
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives as coll
+    r, inf = cfg.process_id, float("inf")     # repr(ENDS) writes inf
+    g = coll.ShardGroup(["cpu"], True)
+    out["paths"] = {}
+    for path in ("host", "card"):
+        if path == "card":
+            g.backend, g._cards = coll.NCCL, dist.new_group(backend="gloo")
+        with telemetry.capture() as reg:
+            ends = [coll.allreduce_minmax([lo[r]], [hi[r]], g)
+                    for lo, hi in %(ends)r]
+            total = coll.allreduce_sum(
+                [torch.arange(%(max_bins)d, dtype=torch.int32) * (r + 1)], g)
+        out["paths"][path] = dict(
+            ends=[(float(lo), float(hi)) for lo, hi in ends],
+            total=total, spans=[(s.name, s.depth, dict(s.attrs))
+                                for s in reg.spans])
     ld.shutdown()
     with open(sys.argv[2] + ".rank%%d" %% cfg.process_id, "wb") as f:
         pickle.dump(out, f)
-""") % {"layouts": LAYOUTS, "max_bins": MAX_BINS}
+""") % {"layouts": LAYOUTS, "max_bins": MAX_BINS, "ends": ENDS}
 
 
 def _series():
@@ -110,7 +138,8 @@ def fleet(tmp_path_factory):
     for r in range(RANKS):
         with open(tmp / f"out.rank{r}", "rb") as f:
             ranks.append(pickle.load(f))
-    return series, {name: [rk[name] for rk in ranks] for name in LAYOUTS}
+    return series, {name: [rk[name] for rk in ranks] for name in
+                    (*LAYOUTS, "paths")}
 
 
 def _params(block_bytes):
@@ -214,7 +243,7 @@ def test_every_collective_is_one_span_with_its_bytes(fleet, rank, layout):
     range ends, the int64 histogram, and to the rank before it the part
     of its shard that the block straddling the boundary takes (none from
     rank 0, none where blocks end on the shard edges); each host staging
-    a sync.* span inside."""
+    a sync.* span inside.  A fleet of CPU ranks takes gloo throughout."""
     _, ranks = fleet
     spans = ranks[layout][rank]["spans"]
     deltas = STEPS - 1
@@ -229,7 +258,8 @@ def test_every_collective_is_one_span_with_its_bytes(fleet, rank, layout):
     for name, sent in want.items():
         assert len(by[name]) == deltas, name
         for depth, attrs in by[name]:
-            assert attrs == {"bytes": sent, "ranks": RANKS}, name
+            assert attrs == {"bytes": sent, "ranks": RANKS,
+                             "backend": "gloo"}, name
             assert depth == 1, name
     assert "coll.scan" not in by
     assert len(by["sync.coll_hist"]) == deltas
@@ -258,9 +288,62 @@ def test_collectives_of_one_process_send_nothing():
         coll.exclusive_scan_sum([3, 4], g)
         coll.right_edge_exchange([torch.zeros(2, dtype=torch.int32)] * 2, g,
                                  torch.ones(2, dtype=torch.int32))
+    assert g.backend == "gloo"
     assert [(s.name, s.attrs) for s in reg.spans] == [
-        (name, {"bytes": 0, "ranks": 1})
+        (name, {"bytes": 0, "ranks": 1, "backend": "gloo"})
         for name in ("coll.range", "coll.hist", "coll.scan", "coll.edge")]
+
+
+@pytest.mark.parametrize("cards,want", [
+    ([["GPU-a"], ["GPU-b"], ["GPU-c"], ["GPU-d"]], "nccl"),
+    ([["GPU-a", "GPU-b"], ["GPU-c", "GPU-d"]], "nccl"),
+    ([["GPU-a"], ["GPU-a"]], "gloo"),
+    ([["GPU-a"], ["GPU-b"], ["GPU-a"], ["GPU-c"]], "gloo"),
+    ([["GPU-a", "GPU-a"], ["GPU-b", "GPU-c"]], "gloo"),
+    ([["GPU-a"], [None]], "gloo"),
+    ([["GPU-a", None], ["GPU-b", "GPU-c"]], "gloo"),
+    ([[None], [None], [None], [None]], "gloo"),
+    ([["GPU-a"]], "gloo"),
+    ([["GPU-a", "GPU-b"]], "gloo"),
+], ids=["four_cards", "two_cards_a_rank", "two_ranks_one_card",
+        "eight_ranks_round_robin", "one_card_twice_in_a_rank", "a_cpu_rank",
+        "mixed_rank", "cpu_fleet", "one_process", "one_process_two_cards"])
+def test_the_backend_follows_the_gathered_cards(cards, want):
+    """NCCL only where more than one process holds only cards that no
+    other shard names; gloo for CPU shards, a shared card or one
+    process."""
+    assert coll.collective_backend(cards) == want
+
+
+def test_the_card_path_folds_and_sums_as_the_host_path(fleet):
+    """The card path's gather, fold and int64 sum, carried by a gloo
+    subgroup on CPU tensors, gives every rank the host path's ends (signed
+    zeros of the lower rank, infinite ends where a rank has no ratio) and
+    its histogram sum, and one process's fold of the same shards; its
+    range span waits in sync.coll_range and its histogram stages
+    nothing."""
+    _, ranks = fleet
+    one = coll.ShardGroup(["cpu"] * RANKS, False)
+    want = [tuple(float(v) for v in coll.allreduce_minmax(lo, hi, one))
+            for lo, hi in ENDS]
+    total = sum(np.arange(MAX_BINS, dtype=np.int64) * (r + 1)
+                for r in range(RANKS))
+    for rk in ranks["paths"]:
+        for path, backend in (("host", "gloo"), ("card", "nccl")):
+            got = rk[path]
+            assert got["ends"] == want
+            assert [np.signbit(e).tolist() for e in got["ends"]] == [
+                np.signbit(e).tolist() for e in want]
+            assert got["total"].dtype == torch.int32
+            np.testing.assert_array_equal(got["total"].numpy(), total)
+            assert {a["backend"] for n, _, a in got["spans"]
+                    if n.startswith("coll.")} == {backend}
+        # (a span is recorded as it closes: the inner one first)
+        assert [(n, d) for n, d, _ in rk["card"]["spans"]] == [
+            ("sync.coll_range", 1), ("coll.range", 0)] * len(ENDS) + [
+            ("coll.hist", 0)]
+        assert "sync.coll_range" not in [n for n, _, _ in
+                                         rk["host"]["spans"]]
 
 
 @pytest.mark.parametrize("visible,rank,want", [
