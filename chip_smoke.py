@@ -568,7 +568,7 @@ def archive_phase(torch, np, dev, series: dict) -> dict:
             for it in (1, len(steps) - 1):
                 st = read[it]
                 n, be = st.n, st.block_elems
-                idx = compress._decode_index_host(st)
+                idx = compress.decode_index_host(st)
                 pos = np.flatnonzero(idx == (1 << st.b_bits) - 1)
                 wins = [(0, 64), (n - 100, n)]
                 if be + 7 <= n:

@@ -90,8 +90,7 @@ class CheckpointManager:
         cannot hold bit-exactly get host chains.  `device` runs the encode
         and the read (CUDA unless the caller asks for another), and is
         where a restore puts leaves whose template lives on "meta"."""
-        if chain not in chainmod.RESIDENCIES:
-            raise ValueError(f"unknown chain residency {chain!r}")
+        chainmod.check_residency(chain)
         self.dir = directory
         self.params = params
         self.anchor_every = max(1, anchor_every)

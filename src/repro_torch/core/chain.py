@@ -54,12 +54,17 @@ def device_supports(dtype) -> bool:
     return np.dtype(dtype) in (np.dtype(np.float32), np.dtype(np.float64))
 
 
-def resolve_residency(requested: str, dtype) -> str:
-    """Residency policy: honor an explicit choice, pick for "auto"."""
+def check_residency(requested: str) -> str:
+    """`requested` if it names a residency, else ValueError."""
     if requested not in RESIDENCIES:
         raise ValueError(f"unknown chain residency {requested!r}; "
                          f"expected one of {RESIDENCIES}")
-    if requested == CHAIN_HOST:
+    return requested
+
+
+def resolve_residency(requested: str, dtype) -> str:
+    """Residency policy: honor an explicit choice, pick for "auto"."""
+    if check_residency(requested) == CHAIN_HOST:
         return CHAIN_HOST
     supported = device_supports(dtype)
     if requested == CHAIN_DEVICE and not supported:
@@ -218,5 +223,6 @@ class SessionChain:
 
 __all__ = ["ReferenceChain", "HostReferenceChain", "DeviceReferenceChain",
            "SessionChain", "make_reference_chain", "resolve_residency",
-           "resolve_device", "device_supports", "tree_to_host",
-           "CHAIN_HOST", "CHAIN_DEVICE", "CHAIN_AUTO", "RESIDENCIES"]
+           "check_residency", "resolve_device", "device_supports",
+           "tree_to_host", "CHAIN_HOST", "CHAIN_DEVICE", "CHAIN_AUTO",
+           "RESIDENCIES"]

@@ -6,7 +6,7 @@ stages, on the compressor's device:
   1. `_analyze`     -- ratios and their global range, candidate-bin ids
                        and ratios (change-ratio kernel), histogram
                        (histogram kernel), stable descending sort, auto-B
-  2. indexing       -- `_encode_topk`: rank LUT + per-element index
+  2. indexing       -- `encode_topk`: rank LUT + per-element index
                        assignment (top-k), or `_encode_centers`: the
                        nearest of the equal-width, log-scale or k-means
                        centers (``binning``; the centers themselves are a
@@ -22,8 +22,13 @@ stages, on the compressor's device:
 
 then the shared host finalize of ``core.pipeline``.  The REF_RECONSTRUCTED
 chain advances through the fused chain-advance kernel when it is
-device-resident.  On ``device="cpu"`` every kernel call takes its plain
-PyTorch version; both give the reference's steps byte for byte.
+device-resident.  ``TemporalCompressor`` is the streaming shell of
+``core.stream`` (step loop, chain, finalize queue, series drain) with two
+hooks of its own: ``_make_chain`` (``chain.make_reference_chain``) and
+``_device_encode`` (the staged upload, then ``encode_device``); its
+finalize hooks are the shell's, ``finalize_anchor`` and ``finalize_step``.
+On ``device="cpu"`` every kernel call takes its plain PyTorch version;
+both give the reference's steps byte for byte.
 ``NumarckParams.fixed_domain`` is ignored here, as by the reference's
 single-device driver; the sharded driver reads it.
 
@@ -38,18 +43,18 @@ finalize folds into the per-step record, and the per-read record
 ``meta["telemetry_read"]``.  With telemetry enabled each device stage
 ends in a ``torch.cuda.synchronize`` so a span means stage time, as the
 reference's ``block_until_ready``; disabled, nothing waits.  Beyond the
-reference's spans, ``TemporalCompressor.add_async`` is one
+reference's spans, each ``add_async`` of the shell is one
 ``compress.step`` span, and every call of a delta step that blocks the
 host on the device (a copy either way, a ``nonzero``, a ``tolist``) is a
 ``sync.<site>`` span of its own, where the call is made (ratios,
 select_b, ops, rans, chain).  The stage syncs are not program syncs and
-stay outside the ``sync.*`` family.  The step's upload does not block:
-its host staging is the ``upload.stage`` span (`_upload`).
+stay outside the ``sync.*`` family (``stage_sync``).  The step's upload
+does not block: its host staging is the ``upload.stage`` span (`_upload`).
+``encode_topk``, ``decode_index_host``, ``record_read`` and
+``stage_sync`` are shared with the sharded driver.
 """
 from __future__ import annotations
 
-from collections import deque
-from concurrent.futures import Future
 from typing import List, Optional
 
 import numpy as np
@@ -58,12 +63,11 @@ import torch
 from repro_torch.core import binning, blocks, entropy, ratios, select_b
 from repro_torch.core import chain as chainmod
 from repro_torch.core import pipeline as pipe
-from repro_torch.core.overlap import FinalizeQueue
 from repro_torch.core.pipeline import DeviceEncoded
-from repro_torch.core.types import (REF_RECONSTRUCTED, STRATEGY_EQUAL,
-                                    STRATEGY_LOG, STRATEGY_TOPK,
-                                    CompressedStep, NumarckParams,
-                                    step_dtype, storage_tensor)
+from repro_torch.core.stream import StreamCompressor
+from repro_torch.core.types import (STRATEGY_EQUAL, STRATEGY_LOG,
+                                    STRATEGY_TOPK, CompressedStep,
+                                    NumarckParams, step_dtype, storage_tensor)
 from repro_torch.faults.errors import IntegrityError
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import rans
@@ -97,7 +101,7 @@ def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return out
 
 
-def _sync(dev: torch.device) -> None:
+def stage_sync(dev: torch.device) -> None:
     """End a device stage under telemetry: wait for the work queued on
     ``dev`` (the reference's ``block_until_ready``).  Callers guard it
     with ``telemetry.enabled()``, so a disabled run never waits."""
@@ -134,13 +138,20 @@ def _analyze(prev: torch.Tensor, curr: torch.Tensor, params: NumarckParams,
                 est_sizes=est_sizes, lo=lo, hi=hi)
 
 
-def _encode_topk(bin_ids, ids_desc, b_bits: int, k_eff: int, max_bins: int):
+def encode_topk(bin_ids, ids_desc, b_bits: int, k_eff: int, max_bins: int):
+    """Top-k indexing: each element's rank among the k_eff most frequent
+    bins, the B-bit marker for every other bin and every invalid ratio."""
     marker = (1 << b_bits) - 1
     lut = binning.rank_lut(ids_desc[:k_eff], k_eff, max_bins)
     # rank_lut fills non-selected with k_eff; remap to the B-bit marker.
     ranks = lut[bin_ids.clamp(0, max_bins - 1).to(torch.int64)]
     ranks = torch.where(ranks >= k_eff, marker, ranks)
     return torch.where(bin_ids >= 0, ranks, marker).to(torch.int32)
+
+
+# The names encode_device calls them by (the benchmark's fault tests patch
+# `_encode_topk` here).
+_sync, _encode_topk = stage_sync, encode_topk
 
 
 def _strategy_centers(a: dict, params: NumarckParams, k: int) -> np.ndarray:
@@ -355,9 +366,9 @@ def compress_step(prev: np.ndarray, curr: np.ndarray, params: NumarckParams,
                               dev.domain_lo, dev.width, params, dev.meta)
 
 
-def _record_read(step: CompressedStep, entropy_s: float = 0.0,
-                 dequant_s: float = 0.0, patch_s: float = 0.0,
-                 fetch_s: float = 0.0, device: bool = False) -> None:
+def record_read(step: CompressedStep, entropy_s: float = 0.0,
+                dequant_s: float = 0.0, patch_s: float = 0.0,
+                fetch_s: float = 0.0, device: bool = False) -> None:
     """Fold the decode-side span durations into the canonical per-read
     telemetry record (``obs.report.READ_TELEMETRY_KEYS``), identical
     across the single-device, sharded and anchor read paths."""
@@ -405,7 +416,7 @@ def decode_anchor(step: CompressedStep, device=None) -> np.ndarray:
             f"{tuple(step.shape)} {step.dtype} ({e}) -- payload corrupt "
             "or truncated") from e
     if telemetry.enabled():
-        _record_read(step, entropy_s=sp_e.duration, device=route)
+        record_read(step, entropy_s=sp_e.duration, device=route)
     return out
 
 
@@ -431,13 +442,13 @@ def decode_anchor_device(step: CompressedStep, device=None) -> torch.Tensor:
                 "payload corrupt or truncated")
         out = flat.view(sd.torch).reshape(step.shape)
         if tele:
-            _sync(dev)
+            stage_sync(dev)
     if tele:
-        _record_read(step, entropy_s=sp_e.duration, device=True)
+        record_read(step, entropy_s=sp_e.duration, device=True)
     return out
 
 
-def _decode_index_host(step: CompressedStep) -> np.ndarray:
+def decode_index_host(step: CompressedStep) -> np.ndarray:
     """Inflate every index block into one (n,) int32 buffer, block-parallel
     over the shared entropy pool for payloads worth the dispatch."""
     idx = np.empty(step.n, np.int32)
@@ -477,13 +488,13 @@ def decompress_step_device(step: CompressedStep, prev,
                                         step.block_elems, dev)
         idx = idx.reshape(-1)[:step.n].contiguous()
         if tele:
-            _sync(dev)
+            stage_sync(dev)
     with telemetry.span("decode.dequant") as sp_d:
         prev_t = _to_device(prev, dev).reshape(-1).to(cdt).contiguous()
         centers = torch.tensor(step.centers, device=dev).to(cdt)
         recon = kops.dequantize(idx, prev_t, centers, b_bits=step.b_bits)
         if tele:
-            _sync(dev)
+            stage_sync(dev)
     with telemetry.span("decode.patch") as sp_p:
         if step.n_incompressible:
             recon = patch_exceptions(
@@ -491,10 +502,10 @@ def decompress_step_device(step: CompressedStep, prev,
                 b_bits=step.b_bits)
         out = recon.to(step_dtype(step.dtype).torch).reshape(step.shape)
         if tele:
-            _sync(dev)
+            stage_sync(dev)
     if tele:
-        _record_read(step, entropy_s=sp_e.duration, dequant_s=sp_d.duration,
-                     patch_s=sp_p.duration, device=True)
+        record_read(step, entropy_s=sp_e.duration, dequant_s=sp_d.duration,
+                    patch_s=sp_p.duration, device=True)
     return out
 
 
@@ -515,7 +526,7 @@ def decompress_step(step: CompressedStep, prev: Optional[np.ndarray],
     cdt = pipe.reconstruction_dtype(step.dtype)
     marker = (1 << step.b_bits) - 1
     with telemetry.span("decode.entropy") as sp_e:
-        idx = _decode_index_host(step)
+        idx = decode_index_host(step)
     with telemetry.span("decode.dequant") as sp_d:
         prev_flat = np.asarray(prev).reshape(-1).astype(cdt, copy=False)
         centers = np.concatenate([step.centers,
@@ -528,89 +539,39 @@ def decompress_step(step: CompressedStep, prev: Optional[np.ndarray],
             # order.
             out[idx == marker] = step.incomp_values.astype(cdt)
     if telemetry.enabled():
-        _record_read(step, entropy_s=sp_e.duration, dequant_s=sp_d.duration,
-                     patch_s=sp_p.duration, device=False)
+        record_read(step, entropy_s=sp_e.duration, dequant_s=sp_d.duration,
+                    patch_s=sp_p.duration, device=False)
     return out.astype(step.dtype).reshape(step.shape)
 
 
-class TemporalCompressor:
-    """Streaming compressor over a temporal series (paper Sec. III).
-
-    ``overlap=True`` runs the host finalize of step i on a background
-    thread while the next ``add_async`` drives the device encode of step
-    i+1; results equal the serial path.  ``chain`` picks the residency of
-    the reference chain ("auto" = on ``device``, "host", "device").
-    ``device`` defaults to CUDA; pass ``"cpu"`` for the plain versions.
+class TemporalCompressor(StreamCompressor):
+    """Streaming compressor over a temporal series on one device: the
+    shell of ``core.stream`` with ``encode_device`` as its device stages.
+    ``chain`` picks the residency of the reference chain ("auto" = on
+    ``device``, "host", "device").  ``device`` defaults to CUDA; pass
+    ``"cpu"`` for the plain versions.
     """
 
     def __init__(self, params: NumarckParams = NumarckParams(),
                  overlap: bool = False, chain: str = chainmod.CHAIN_AUTO,
                  device=None):
-        if chain not in chainmod.RESIDENCIES:
-            raise ValueError(f"unknown chain residency {chain!r}")
-        self.params = params
-        self.overlap = overlap
-        self.chain = chain
+        super().__init__(params, overlap, chain)
         self.device = chainmod.resolve_device(device)
-        self._chain: Optional[chainmod.ReferenceChain] = None
-        self._q = FinalizeQueue(overlap)
-        self._step = 0
 
-    def add_async(self, arr: np.ndarray) -> "Future[CompressedStep]":
-        """Device-encode `arr` now; return a future of the finalized step.
-        The reference chain advances before returning.  With telemetry on,
-        the whole call is the ``compress.step`` span."""
-        with telemetry.span("compress.step"):
-            arr = np.asarray(arr)
-            step_i, self._step = self._step, self._step + 1
-            if self._chain is None or self._chain.empty:
-                self._chain = chainmod.make_reference_chain(self.chain,
-                                                            arr.dtype,
-                                                            self.device)
-                self._chain.seed(arr)
-                return self._q.submit(pipe.finalize_anchor, arr.copy(),
-                                      self.params,
-                                      label=f"anchor step {step_i}")
-            on_device = self._chain.residency == chainmod.CHAIN_DEVICE
-            # One upload of `curr`, shared by the encode and the chain
-            # advance; a private copy, read before `_upload` returns, since
-            # callers may reuse their buffers at once.
-            curr_in = arr
-            if on_device:
-                with telemetry.span("upload.stage"):
-                    curr_in = _upload(arr, self.device)
-            dev = encode_device(self._chain.peek(), curr_in, self.params,
-                                need_host_idx=not on_device,
-                                device=self.device)
-            if self.params.reference == REF_RECONSTRUCTED:
-                self._chain.advance(dev, arr)
-            else:
-                self._chain.replace(arr)
-            # The background finalize reads `arr` (exception values).
-            curr = arr.copy() if self.overlap else arr
-            return self._q.submit(pipe.finalize_step, curr, dev.enc,
-                                  dev.centers, dev.domain_lo, dev.width,
-                                  self.params, dev.meta,
-                                  label=f"finalize step {step_i}")
+    def _make_chain(self, dtype) -> chainmod.ReferenceChain:
+        return chainmod.make_reference_chain(self.chain, dtype, self.device)
 
-    def add(self, arr: np.ndarray) -> CompressedStep:
-        return self.add_async(arr).result()
-
-    def reference_state(self) -> Optional[np.ndarray]:
-        """Host copy of the current chain state (None before the anchor)."""
-        if self._chain is None or self._chain.empty:
-            return None
-        return self._chain.to_host()
-
-    def flush(self):
-        self._q.flush()
-
-    def close(self):
-        self._q.close()
-
-    def reset(self):
-        self._chain = None
-        self._step = 0
+    def _device_encode(self, prev, curr: np.ndarray) -> DeviceEncoded:
+        on_device = self._chain.residency == chainmod.CHAIN_DEVICE
+        # One upload of `curr`, shared by the encode and the chain advance;
+        # a private copy, read before `_upload` returns, since callers may
+        # reuse their buffers at once.
+        curr_in = curr
+        if on_device:
+            with telemetry.span("upload.stage"):
+                curr_in = _upload(curr, self.device)
+        return encode_device(prev, curr_in, self.params,
+                             need_host_idx=not on_device, device=self.device)
 
 
 class TemporalDecompressor:
@@ -647,15 +608,8 @@ def compress_series(arrays, params: NumarckParams = NumarckParams(),
     asks for the CPU); at most two finalizes are in flight at once."""
     c = TemporalCompressor(params, overlap=overlap, chain=chain,
                            device=device)
-    out: List[CompressedStep] = []
-    pending: deque = deque()
     try:
-        for a in arrays:
-            pending.append(c.add_async(a))
-            while len(pending) > 2:
-                out.append(pending.popleft().result())
-        out.extend(f.result() for f in pending)
-        return out
+        return c.compress_series(arrays)
     finally:
         c.close()
 
@@ -672,4 +626,5 @@ __all__ = ["compress_step", "decompress_step", "decompress_step_device",
            "make_anchor", "decode_anchor", "decode_anchor_device",
            "encode_device", "device_entropy_route", "device_decode_route",
            "symbol_entropy_route", "DeviceEncoded", "TemporalCompressor",
+           "encode_topk", "decode_index_host", "record_read", "stage_sync",
            "TemporalDecompressor", "compress_series", "decompress_series"]

@@ -168,6 +168,21 @@ def _file_crc32(path: str) -> int:
             crc = zlib.crc32(chunk, crc)
 
 
+def step_info(step: CompressedStep) -> dict:
+    """The ``V_info`` attributes of a step (paper Fig. 2)."""
+    return dict(
+        total_data_num=step.n, shape=list(step.shape), dtype=step.dtype,
+        bin_centers_number=int(step.centers.size),
+        elements_per_block=step.block_elems, B=step.b_bits,
+        error_bound=step.error_bound, strategy=step.strategy,
+        reference=step.reference, domain_lo=step.domain_lo,
+        bin_width=step.bin_width, is_anchor=bool(step.is_anchor),
+        n_blocks=step.n_blocks,
+        n_incompressible=step.n_incompressible,
+        codec=step.codec,
+    )
+
+
 class NCKWriter:
     """Assemble sections then write the file in one shot (or via append).
 
@@ -222,17 +237,7 @@ class NCKWriter:
 
     def add_step(self, name: str, step: CompressedStep):
         """Store one CompressedStep under variable prefix `name` (Fig. 2)."""
-        info = dict(
-            total_data_num=step.n, shape=list(step.shape), dtype=step.dtype,
-            bin_centers_number=int(step.centers.size),
-            elements_per_block=step.block_elems, B=step.b_bits,
-            error_bound=step.error_bound, strategy=step.strategy,
-            reference=step.reference, domain_lo=step.domain_lo,
-            bin_width=step.bin_width, is_anchor=bool(step.is_anchor),
-            n_blocks=step.n_blocks,
-            n_incompressible=step.n_incompressible,
-            codec=step.codec,
-        )
+        info = step_info(step)
         if step.block_codecs is not None:
             info["block_codecs"] = [str(c) for c in step.block_codecs]
             self._format_version = max(self._format_version, 2)
@@ -949,4 +954,4 @@ def verify_nck(path: str) -> None:
 
 __all__ = ["NCKWriter", "NCKReader", "StepFragment", "ShardNCKWriter",
            "atomic_commit", "rank_file_path", "next_generation",
-           "read_manifest", "write_manifest", "verify_nck"]
+           "read_manifest", "write_manifest", "verify_nck", "step_info"]

@@ -197,12 +197,15 @@ def finalize_step(curr: np.ndarray, enc: EncodedIndices,
                   meta: Optional[dict] = None) -> CompressedStep:
     """Shared host finalize: exceptions, parallel entropy stage, assembly.
     Blocks the device entropy stage already coded (``enc.entropy_coded``)
-    are taken as they are."""
+    are taken as they are.  A rank of ``MultiProcessCompressor`` finalizes
+    its own blocks and exceptions here (``enc`` holds no others), then
+    turns the result into its ``StepFragment``."""
     curr = np.asarray(curr)
     n = int(enc.n if enc.n is not None else enc.idx.size)
-    # Driver-side stage timings (encode_device/_device_encode attach them
-    # when telemetry is enabled); never persisted into blob bytes -- the
-    # NCK container stores `info` attrs, not `meta`.
+    # Driver-side stage timings (encode_device and the sharded
+    # _device_encode attach them when telemetry is enabled); never
+    # persisted into blob bytes -- the NCK container stores `info` attrs,
+    # not `meta`.
     meta = dict(meta or {})
     drv_tele = meta.pop("telemetry", None) or {}
     with telemetry.span("finalize", n=n, b_bits=enc.b_bits) as sp_fin:
@@ -300,6 +303,11 @@ def anchor_telemetry(bytes_in: int, blks: List[bytes], codec: str,
             "device_entropy": False}
 
 
+def anchor_block_elems(params: NumarckParams, dtype) -> int:
+    """Elements in a block of a lossless anchor: ``block_bytes`` worth."""
+    return max(1, params.block_bytes // np.dtype(dtype).itemsize)
+
+
 def finalize_anchor(arr: np.ndarray, params: NumarckParams,
                     dtype_name: Optional[str] = None) -> CompressedStep:
     """Lossless anchor through the same entropy stage (codec-aware).
@@ -310,7 +318,7 @@ def finalize_anchor(arr: np.ndarray, params: NumarckParams,
     arr = np.asarray(arr)
     dtype_name = dtype_name or str(arr.dtype)
     flat = arr.reshape(-1)
-    block_elems = max(1, params.block_bytes // flat.dtype.itemsize)
+    block_elems = anchor_block_elems(params, flat.dtype)
     with telemetry.span("finalize.anchor", n=arr.size) as sp:
         raws = [flat[s:e].tobytes() for s, e in block_slices(flat.size,
                                                              block_elems)]
@@ -360,5 +368,5 @@ __all__ = ["StepMeta", "EncodedIndices", "DeviceEncoded", "block_slices",
            "topk_centers", "round_centers", "split_packed",
            "pack_blocks_host", "exception_offsets", "exception_table",
            "entropy_ratio", "finalize_step", "finalize_anchor",
-           "anchor_telemetry",
+           "anchor_telemetry", "anchor_block_elems",
            "reconstruct_from_indices", "reconstruction_dtype"]

@@ -25,6 +25,18 @@ a CPU device).  Phases, 1:1 with the paper:
      ``codec="rans"`` the rANS encode kernel per shard (in every driver
      here, multi-process included).
 
+Both compressors are the streaming shell of ``core.stream`` (one step
+loop, chain, finalize queue and series drain with ``TemporalCompressor``)
+with hooks of their own: ``_make_chain`` (``_ShardedDeviceChain``, or a
+host chain in one process) and ``_device_encode`` (phases 1-6 above,
+keeping this process's own blocks and exceptions).  ``ShardedCompressor``
+finalizes through the shell's ``finalize_anchor`` / ``finalize_step``;
+``MultiProcessCompressor``'s ``_finalize_anchor`` and ``_finalize`` run the
+same two over this rank's blocks and turn the result into its
+``StepFragment``, so each rank's step, under its fleet names
+``add_fragment_async`` / ``add_fragment`` / ``compress_series_fragments``,
+resolves to a fragment, never to a whole ``CompressedStep``.
+
 The REF_RECONSTRUCTED chain stays sharded on the devices between steps,
 advanced per shard by the dequantize kernel (``_ShardedDeviceChain``).
 Blobs are byte-identical to the reference's sharded driver, and to the
@@ -34,28 +46,30 @@ blocks shrink to ``ln // 32 * 32``, as in the reference).
 Telemetry: the reference's ``encode.*``, ``finalize.*`` and ``decode.*``
 spans and ``meta["telemetry"]`` records, with the single-device driver's
 key set (``obs.report``); each device stage ends in a synchronize of
-every shard's card only while telemetry is enabled.
+every shard's card only while telemetry is enabled.  Each step is one
+``compress.step`` span; a sharded step has no ``upload.stage`` (``_shard``
+copies each shard from pageable memory), and on the device-resident chain
+no ``chain.advance`` span (``_ShardedDeviceChain`` opens none).
 """
 from __future__ import annotations
 
 import contextlib
-from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass
-from typing import Deque, List, Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.core import binning, entropy, ratios, select_b
+from repro_torch.core import binning, ratios, select_b
 from repro_torch.core import chain as chainmod
 from repro_torch.core import compress as comp
 from repro_torch.core import pipeline as pipe
-from repro_torch.core.container import ShardNCKWriter, StepFragment
-from repro_torch.core.overlap import FinalizeQueue
+from repro_torch.core.container import (ShardNCKWriter, StepFragment,
+                                        step_info)
 from repro_torch.core.pipeline import DeviceEncoded
-from repro_torch.core.types import (REF_RECONSTRUCTED, CompressedStep,
-                                    NumarckParams, step_dtype)
+from repro_torch.core.stream import StreamCompressor
+from repro_torch.core.types import CompressedStep, NumarckParams, step_dtype
 from repro_torch.distributed import collectives as coll
 from repro_torch.faults import inject
 from repro_torch.kernels import ops as kops
@@ -75,7 +89,7 @@ def _on(dev: torch.device):
 def _sync(devices: Sequence[torch.device]) -> None:
     """End a device stage under telemetry on every shard's card."""
     for d in set(devices):
-        comp._sync(d)
+        comp.stage_sync(d)
 
 
 def _check_devices(devices) -> List[torch.device]:
@@ -154,10 +168,11 @@ class _ShardOut:
     exc_counts: Optional[np.ndarray] = None  # markers per owned block
 
 
-class ShardedCompressor:
+class ShardedCompressor(StreamCompressor):
     """Distributed NUMARCK over a list of shard devices (the reference's
     mesh axis), in one process or, through ``MultiProcessCompressor``,
-    across processes.
+    across processes: the streaming shell of ``core.stream`` with the
+    sharded phases as its ``_device_encode`` and the sharded chain.
 
     ``overlap=True`` double-buffers the device/host split across temporal
     steps, as in the reference.  ``chain`` picks the reference chain's
@@ -169,22 +184,16 @@ class ShardedCompressor:
 
     _pipeline = "sharded"
     _distributed = False          # shards of other processes too
+    _queue = "shard-finalize"
 
     def __init__(self, devices: Optional[Sequence] = None,
                  params: NumarckParams = NumarckParams(),
                  overlap: bool = False, chain: str = chainmod.CHAIN_AUTO):
-        if chain not in chainmod.RESIDENCIES:
-            raise ValueError(f"unknown chain residency {chain!r}")
+        super().__init__(params, overlap, chain)
         devices = _check_devices([None] if devices is None else devices)
         self.group = coll.ShardGroup(devices, self._distributed)
         self.devices = self.group.devices
-        self.params = params
-        self.overlap = overlap
-        self.chain = chain
         self.n_shards = self.group.size
-        self._q = FinalizeQueue(overlap, name="shard-finalize")
-        self._chain: Optional[chainmod.ReferenceChain] = None
-        self._step = 0
 
     # -------------------------------------------------------- device stage
     def _layout(self, n: int, b_bits: int) -> _Layout:
@@ -246,9 +255,9 @@ class ShardedCompressor:
         idx_sh = []
         for d, ids in zip(self.devices, bin_ids):
             with _on(d):
-                idx_sh.append(comp._encode_topk(ids, ids_desc.to(d),
-                                                lay.b_bits, k_eff,
-                                                p.max_bins))
+                idx_sh.append(comp.encode_topk(ids, ids_desc.to(d),
+                                               lay.b_bits, k_eff,
+                                               p.max_bins))
         # Each head is what the shard before it needs; nothing crosses a
         # boundary that no block straddles.
         heads = [x[:lay.reach(g.first + j - 1)] for j, x in enumerate(idx_sh)]
@@ -305,26 +314,14 @@ class ShardedCompressor:
                     o.owned.contiguous(), lay.b_bits, o.nown, lay.be)
         return blobs
 
-    def _code_or_pack(self, outs: List[_ShardOut], lay: _Layout):
-        """Phases 5-6 on the shards where ``device_entropy_route`` holds
-        (coded blobs), else phase 5 alone (packed bytes for the host
-        coder).  -> (coded, raws, device entropy s, pack s)."""
-        coded = raws = None
-        with telemetry.span("encode.device_entropy") as sp_de:
-            if comp.device_entropy_route(self.params, lay.n, lay.b_bits):
-                coded = self._entropy_stage(outs, lay)
-        pack_s = 0.0
-        if coded is None:
-            with telemetry.span("encode.pack_fetch") as sp_pack:
-                raws = self._pack(outs, lay)
-            pack_s = sp_pack.duration
-        return coded, raws, sp_de.duration, pack_s
-
-    def _encode_common(self, prev, curr: np.ndarray,
-                       b_bits: Optional[int]):
-        """Phases 1-4 for one step; prev is a host array or the sharded
-        chain state (a list of padded per-shard tensors).  Also returns
-        the stage seconds (zero with telemetry off)."""
+    def _device_encode(self, prev, curr: np.ndarray,
+                       b_bits: Optional[int] = None) -> DeviceEncoded:
+        """Phases 1-5 for one step, and phase 6 on this process's shards
+        where ``device_entropy_route`` holds: the encode result that the
+        finalize and the reference chain consume, with this process's
+        own blocks (coded, or packed for the host coder) and exceptions.
+        ``prev`` is a host array or the sharded chain state (a list of
+        padded per-shard tensors)."""
         p = self.params
         curr = np.asarray(curr)
         n = curr.size
@@ -348,8 +345,7 @@ class ShardedCompressor:
                  else (p.b_bits if p.b_bits is not None else a["b_auto"]))
         k_eff = min((1 << bb) - 1, p.max_bins)
         lay = self._layout(n, bb)
-        with telemetry.span("encode.index",
-                            b_bits=bb) as sp_idx:
+        with telemetry.span("encode.index", b_bits=bb) as sp_idx:
             outs = self._encode_shards(a["bin_ids"], a["ids_desc"], lay,
                                        k_eff)
             if tele:
@@ -360,39 +356,38 @@ class ShardedCompressor:
                                     k_eff, float(a["domain_lo"]),
                                     float(a["width"]))
         centers = pipe.round_centers(centers, curr.dtype)
-        meta = {"b_auto": int(a["b_auto"]),
-                "est_sizes": a["est_sizes"].numpy().tolist(),
-                "n_shards": self.n_shards, "pipeline": self._pipeline}
-        stage_s = {"analyze_s": sp_an.duration,
-                   "encode_s": sp_idx.duration + sp_exc.duration}
-        return a, lay, outs, centers, meta, curr_sh, stage_s
-
-    def _device_encode(self, prev, curr: np.ndarray,
-                       b_bits: Optional[int] = None) -> DeviceEncoded:
-        """Phases 1-5 on the shards; the pre-entropy encode result that
-        the finalize and the reference chain consume."""
-        a, lay, outs, centers, meta, curr_sh, stage_s = self._encode_common(
-            prev, curr, b_bits)
-        coded, raws, de_s, pack_s = self._code_or_pack(outs, lay)
+        coded = raws = None
+        with telemetry.span("encode.device_entropy") as sp_de:
+            if comp.device_entropy_route(p, n, bb):
+                coded = self._entropy_stage(outs, lay)
+        pack_s = 0.0
+        if coded is None:
+            with telemetry.span("encode.pack_fetch") as sp_pack:
+                raws = self._pack(outs, lay)
+            pack_s = sp_pack.duration
         host_chain = (self._chain is not None
                       and self._chain.residency == chainmod.CHAIN_HOST)
         with telemetry.span("encode.idx_fetch") as sp_fetch:
             idx = None
             if host_chain:
-                idx = torch.cat([o.idx.cpu() for o in outs]).numpy()[:lay.n]
+                idx = torch.cat([o.idx.cpu() for o in outs]).numpy()[:n]
         enc = pipe.EncodedIndices(
-            idx=idx, b_bits=lay.b_bits, block_elems=lay.be, n=lay.n,
-            packed=raws, entropy_coded=coded,
-            entropy_codec=None if coded is None else self.params.codec,
+            idx=idx, b_bits=bb, block_elems=lay.be, n=n, packed=raws,
+            entropy_coded=coded,
+            entropy_codec=None if coded is None else p.codec,
             exc_positions=np.concatenate([o.exc_pos for o in outs]),
             exc_block_counts=np.concatenate([o.exc_counts for o in outs]))
-        if telemetry.enabled():
+        meta = {"b_auto": int(a["b_auto"]),
+                "est_sizes": a["est_sizes"].numpy().tolist(),
+                "n_shards": self.n_shards, "pipeline": self._pipeline}
+        if tele:
             # The single-device driver's keys; finalize_step folds them
             # into the canonical per-step record.
             meta["telemetry"] = {
-                "analyze_s": stage_s["analyze_s"],
-                "encode_s": stage_s["encode_s"] + pack_s + sp_fetch.duration,
-                "device_entropy_s": de_s,
+                "analyze_s": sp_an.duration,
+                "encode_s": (sp_idx.duration + sp_exc.duration + pack_s
+                             + sp_fetch.duration),
+                "device_entropy_s": sp_de.duration,
             }
         return DeviceEncoded(enc=enc, centers=centers,
                              domain_lo=float(a["domain_lo"]),
@@ -400,89 +395,29 @@ class ShardedCompressor:
                              idx_dev=[o.idx for o in outs],
                              curr_dev=curr_sh)
 
-    # --------------------------------------------------------- host stage
-    def compress_async(self, prev: np.ndarray, curr: np.ndarray,
-                       b_bits: Optional[int] = None
-                       ) -> "Future[CompressedStep]":
-        """Device-encode now; return a future of the finalized step."""
-        dev = self._device_encode(prev, curr, b_bits)
-        step_i, self._step = self._step, self._step + 1
-        curr_s = (np.array(curr, copy=True) if self.overlap
-                  else np.asarray(curr))
-        return self._q.submit(pipe.finalize_step, curr_s, dev.enc,
-                              dev.centers, dev.domain_lo, dev.width,
-                              self.params, dev.meta,
-                              label=f"finalize step {step_i}")
-
-    def compress(self, prev: np.ndarray, curr: np.ndarray,
-                 b_bits: Optional[int] = None) -> CompressedStep:
-        return self.compress_async(prev, curr, b_bits).result()
-
     def _make_chain(self, dtype) -> chainmod.ReferenceChain:
         if (chainmod.resolve_residency(self.chain, dtype)
                 == chainmod.CHAIN_DEVICE):
             return _ShardedDeviceChain(self)
+        if self._distributed:
+            raise ValueError(f"multi-process compression of "
+                             f"{np.dtype(dtype)} needs the device-resident "
+                             "chain")
         return chainmod.HostReferenceChain()
 
-    # ------------------------------------------------- temporal streaming
-    def add_async(self, arr: np.ndarray) -> "Future[CompressedStep]":
-        """Streaming interface over a temporal series (the first call
-        stores a lossless anchor); the chain advances before returning."""
-        arr = np.asarray(arr)
-        step_i, self._step = self._step, self._step + 1
-        if self._chain is None or self._chain.empty:
-            self._chain = self._make_chain(arr.dtype)
-            self._chain.seed(arr)
-            return self._q.submit(pipe.finalize_anchor, arr.copy(),
-                                  self.params,
-                                  label=f"anchor step {step_i}")
-        dev = self._device_encode(self._chain.peek(), arr)
-        if self.params.reference == REF_RECONSTRUCTED:
-            self._chain.advance(dev, arr)
-        else:
-            self._chain.replace(arr)
-        curr_s = np.array(arr, copy=True) if self.overlap else arr
-        return self._q.submit(pipe.finalize_step, curr_s, dev.enc,
-                              dev.centers, dev.domain_lo, dev.width,
-                              self.params, dev.meta,
-                              label=f"finalize step {step_i}")
+    # --------------------------------------------------------- host stage
+    def compress_async(self, prev: np.ndarray, curr: np.ndarray,
+                       b_bits: Optional[int] = None) -> Future:
+        """Device-encode `curr` against `prev` now; return a future of the
+        finalized step (a rank's StepFragment in a multi-process run)."""
+        with telemetry.span("compress.step"):
+            dev = self._device_encode(prev, curr, b_bits)
+            step_i, self._step = self._step, self._step + 1
+            return self._submit(np.asarray(curr), dev, step_i)
 
-    def add(self, arr: np.ndarray) -> CompressedStep:
-        return self.add_async(arr).result()
-
-    def compress_series(self, arrays) -> List[CompressedStep]:
-        """Compress a temporal series; double-buffered when overlap=True."""
-        self.reset()
-        return _drain(self.add_async, arrays)
-
-    def flush(self):
-        self._q.flush()
-
-    def close(self):
-        self._q.close()
-
-    def reference_state(self) -> Optional[np.ndarray]:
-        """Host copy of the current chain state (None before the anchor)."""
-        if self._chain is None or self._chain.empty:
-            return None
-        return self._chain.to_host()
-
-    def reset(self):
-        """Drop the temporal chain state (next add() writes an anchor)."""
-        self._chain = None
-        self._step = 0
-
-
-def _drain(submit, arrays) -> list:
-    """Submit every array, keeping at most two results in flight."""
-    out: list = []
-    futs: Deque[Future] = deque()
-    for a in arrays:
-        futs.append(submit(a))
-        while len(futs) > 2:
-            out.append(futs.popleft().result())
-    out.extend(f.result() for f in futs)
-    return out
+    def compress(self, prev: np.ndarray, curr: np.ndarray,
+                 b_bits: Optional[int] = None) -> CompressedStep:
+        return self.compress_async(prev, curr, b_bits).result()
 
 
 class _ShardedDeviceChain(chainmod.ReferenceChain):
@@ -563,7 +498,7 @@ class ShardedDecompressor:
                         step.index_blocks[b0:b1], step.b_bits, be, d)
                 out.append((start, idx.reshape(-1)[:n - start]))
             return out
-        idx = comp._decode_index_host(step)
+        idx = comp.decode_index_host(step)
         ln = -(-n // P)
         return [(j * ln, torch.from_numpy(idx[j * ln:(j + 1) * ln].copy()
                                           ).to(d))
@@ -614,10 +549,10 @@ class ShardedDecompressor:
             res = torch.cat([r.cpu() for r in recon if r is not None]).numpy()
             res = res.astype(step.dtype).reshape(step.shape)
         if tele:
-            comp._record_read(step, entropy_s=sp_e.duration,
-                              dequant_s=sp_d.duration, patch_s=sp_p.duration,
-                              fetch_s=sp_f.duration,
-                              device=comp.device_decode_route(step))
+            comp.record_read(step, entropy_s=sp_e.duration,
+                             dequant_s=sp_d.duration, patch_s=sp_p.duration,
+                             fetch_s=sp_f.duration,
+                             device=comp.device_decode_route(step))
         return res
 
     def decompress_series(self, steps: Sequence[CompressedStep]
@@ -671,184 +606,62 @@ class MultiProcessCompressor(ShardedCompressor):
         self.rank = self.group.rank
         self.num_ranks = self.group.num_ranks
 
-    def _make_chain(self, dtype) -> chainmod.ReferenceChain:
-        if (chainmod.resolve_residency(self.chain, dtype)
-                != chainmod.CHAIN_DEVICE):
-            raise ValueError(f"multi-process compression of "
-                             f"{np.dtype(dtype)} needs the device-resident "
-                             "chain")
-        return _ShardedDeviceChain(self)
-
-    def _device_encode_local(self, prev, curr: np.ndarray):
-        """Phases 1-5 over every process's shards, and phase 6 on this
-        process's cards where ``device_entropy_route`` holds; this process
-        keeps only its own blocks (coded, or packed for the host coder)
-        and exceptions."""
-        a, lay, outs, centers, meta, curr_sh, stage_s = self._encode_common(
-            prev, curr, None)
-        meta.update(rank=self.rank, num_ranks=self.num_ranks)
-        coded, raws, de_s, pack_s = self._code_or_pack(outs, lay)
-        if telemetry.enabled():
-            meta["telemetry"] = {
-                "analyze_s": stage_s["analyze_s"],
-                "encode_s": stage_s["encode_s"] + pack_s,
-                "device_entropy_s": de_s,
-            }
-        local = {"raws": raws, "coded": coded,
-                 "block_start": outs[0].g0, "nblocks": lay.nblocks,
-                 "exc_pos": np.concatenate([o.exc_pos for o in outs]),
-                 "exc_counts": np.concatenate([o.exc_counts for o in outs])}
-        enc = pipe.EncodedIndices(idx=None, b_bits=lay.b_bits,
-                                  block_elems=lay.be, n=lay.n)
-        dev = DeviceEncoded(enc=enc, centers=centers,
-                            domain_lo=float(a["domain_lo"]),
-                            width=float(a["width"]), meta=meta,
-                            idx_dev=[o.idx for o in outs], curr_dev=curr_sh)
-        return dev, local
-
-    def _fragment_finalize(self, curr: np.ndarray, dev: DeviceEncoded,
-                           local: dict) -> StepFragment:
-        """Per-rank finalize: this rank's exception values and its own
-        blocks, taken as the device entropy stage coded them or coded
-        here by the host coder; block for block byte-identical to
-        ``core.pipeline.finalize_step`` on the concatenated fragments."""
-        p = self.params
-        curr = np.asarray(curr)
-        bb, be, n = dev.enc.b_bits, dev.enc.block_elems, int(dev.enc.n)
-        marker = (1 << bb) - 1
-        meta = dict(dev.meta)
-        drv_tele = meta.pop("telemetry", None) or {}
-        with telemetry.span("finalize", n=n, b_bits=bb) as sp_fin:
-            with telemetry.span("finalize.exceptions") as sp_exc:
-                values = curr.reshape(-1)[local["exc_pos"]].astype(
-                    curr.dtype, copy=False)
-            raws, blks = local["raws"], local["coded"]
-            device_entropy = blks is not None
-            block_codecs: Optional[List[str]] = None
-            with telemetry.span("finalize.entropy") as sp_ent:
-                if device_entropy:
-                    codec = p.codec
-                elif p.codec == entropy.AUTO_CODEC and len(raws) > 1:
-                    per = entropy.choose_block_codecs(raws, p.zlib_level)
-                    if len(set(per)) > 1:
-                        codec = pipe._primary_codec(per)
-                        block_codecs = per
-                        blks = entropy.compress_blocks_per_codec(
-                            raws, per, level=p.zlib_level,
-                            parallel=p.parallel_entropy)
-                    else:
-                        codec = per[0]
-                        blks = entropy.compress_blocks(
-                            raws, codec=codec, level=p.zlib_level,
-                            parallel=p.parallel_entropy)
-                else:
-                    codec = entropy.resolve_codec(p.codec, raws,
-                                                  p.zlib_level)
-                    blks = entropy.compress_blocks(
-                        raws, codec=codec, level=p.zlib_level,
-                        parallel=p.parallel_entropy)
-                sp_ent.set(codec=codec, blocks=len(blks))
-            centers = dev.centers
-            if centers.size > marker:
-                centers = centers[:marker]
-            bytes_in = (len(blks) * (be * bb // 8) if device_entropy
-                        else sum(len(r) for r in raws))
-            bytes_out = sum(len(b) for b in blks)
-            sp_fin.set(codec=codec, bytes_in=bytes_in, bytes_out=bytes_out)
-        info = dict(
-            total_data_num=n, shape=list(curr.shape), dtype=str(curr.dtype),
-            bin_centers_number=int(centers.size), elements_per_block=be,
-            B=bb, error_bound=p.error_bound, strategy=p.strategy,
-            reference=p.reference, domain_lo=dev.domain_lo,
-            bin_width=dev.width, is_anchor=False,
-            n_blocks=int(local["nblocks"]), codec=codec)
-        frag = StepFragment(
-            is_anchor=False, block_start=int(local["block_start"]),
-            info=info, index_blocks=blks,
-            centers=centers if self.rank == 0 else None,
-            incomp_values=values, incomp_block_counts=local["exc_counts"],
-            block_codecs=block_codecs)
-        if telemetry.enabled():
-            meta["telemetry"] = {
-                "analyze_s": float(drv_tele.get("analyze_s", 0.0)),
-                "encode_s": float(drv_tele.get("encode_s", 0.0)),
-                "exceptions_s": sp_exc.duration,
-                "entropy_s": (float(drv_tele.get("device_entropy_s", 0.0))
-                              if device_entropy else sp_ent.duration),
-                "finalize_s": sp_fin.duration,
-                "bytes_in": bytes_in, "bytes_out": bytes_out,
-                "entropy_ratio": bytes_in / max(bytes_out, 1),
-                "codec": codec, "device_entropy": device_entropy,
-            }
-        frag.meta = meta
-        return frag
-
-    def _anchor_fragment(self, arr: np.ndarray) -> StepFragment:
-        """Lossless anchor, split by block index: rank k owns the global
-        anchor blocks [k*nb/R, (k+1)*nb/R) of the single-process block
-        grid, so per-block bytes match it exactly."""
-        p = self.params
-        arr = np.asarray(arr)
-        flat = arr.reshape(-1)
-        be_a = max(1, p.block_bytes // flat.dtype.itemsize)
-        slices = pipe.block_slices(flat.size, be_a)
-        nb = len(slices)
-        g_lo = self.rank * nb // self.num_ranks
-        g_hi = (self.rank + 1) * nb // self.num_ranks
-        with telemetry.span("finalize.anchor", n=arr.size) as sp:
-            raws = [flat[s:e].tobytes() for s, e in slices[g_lo:g_hi]]
-            codec = entropy.resolve_codec(p.codec, raws, p.zlib_level)
-            blks = entropy.compress_blocks(raws, codec=codec,
-                                           level=p.zlib_level,
-                                           parallel=p.parallel_entropy)
-            sp.set(codec=codec)
-        info = dict(
-            total_data_num=arr.size, shape=list(arr.shape),
-            dtype=str(arr.dtype), bin_centers_number=0,
-            elements_per_block=be_a, B=0, error_bound=p.error_bound,
-            strategy=p.strategy, reference=p.reference, domain_lo=0.0,
-            bin_width=0.0, is_anchor=True, n_blocks=nb, codec=codec)
-        frag = StepFragment(is_anchor=True, block_start=g_lo, info=info,
-                            index_blocks=blks)
-        if telemetry.enabled():
-            frag.meta["telemetry"] = pipe.anchor_telemetry(
-                sum(len(r) for r in raws), blks, codec, sp.duration)
-        return frag
-
-    # ------------------------------------------------- temporal streaming
-    def add_fragment_async(self, arr: np.ndarray) -> "Future[StepFragment]":
-        """Like `add_async`, but the future resolves to this rank's
-        StepFragment (the first call seeds the chain and fragments a
-        lossless anchor)."""
-        arr = np.asarray(arr)
-        step_i, self._step = self._step, self._step + 1
+    def add_async(self, arr: np.ndarray) -> "Future[StepFragment]":
+        """Device-encode `arr` now; return a future of this rank's
+        StepFragment of the step (the first call seeds the chain and
+        fragments a lossless anchor)."""
         # Fleet fault-injection sites (no-ops without REPRO_FAULTS): a rank
         # dying mid-encode, or stalling as a straggler, exercises rank 0's
         # quarantine/rollback commit path.
-        inject.fire("rank_crash", step=step_i, rank=self.rank)
-        inject.fire("straggler", step=step_i, rank=self.rank)
-        if self._chain is None or self._chain.empty:
-            self._chain = self._make_chain(arr.dtype)
-            self._chain.seed(arr)
-            return self._q.submit(self._anchor_fragment, arr.copy(),
-                                  label=f"anchor fragment {step_i}")
-        dev, local = self._device_encode_local(self._chain.peek(), arr)
-        if self.params.reference == REF_RECONSTRUCTED:
-            self._chain.advance(dev, arr)
-        else:
-            self._chain.replace(arr)
-        curr_s = np.array(arr, copy=True) if self.overlap else arr
-        return self._q.submit(self._fragment_finalize, curr_s, dev, local,
-                              label=f"fragment step {step_i}")
+        inject.fire("rank_crash", step=self._step, rank=self.rank)
+        inject.fire("straggler", step=self._step, rank=self.rank)
+        return super().add_async(arr)
 
-    def add_fragment(self, arr: np.ndarray) -> StepFragment:
-        return self.add_fragment_async(arr).result()
+    # A rank's step is its fragment: the shell's loop under the names that
+    # the fleet calls.
+    add_fragment_async = add_async
+    add_fragment = ShardedCompressor.add
+    compress_series_fragments = ShardedCompressor.compress_series
 
-    def compress_series_fragments(self, arrays) -> List[StepFragment]:
-        """This rank's fragments of a temporal series, device work in
-        lockstep across ranks."""
-        self.reset()
-        return _drain(self.add_fragment_async, arrays)
+    def _finalize_anchor(self, arr: np.ndarray) -> StepFragment:
+        """Lossless anchor, split by block index: rank k owns the global
+        anchor blocks [k*nb/R, (k+1)*nb/R) of the single-process block
+        grid and finalizes them alone, so per-block bytes match it."""
+        flat = arr.reshape(-1)
+        be = pipe.anchor_block_elems(self.params, flat.dtype)
+        nb = -(-flat.size // be)
+        g_lo = self.rank * nb // self.num_ranks
+        g_hi = (self.rank + 1) * nb // self.num_ranks
+        st = pipe.finalize_anchor(flat[g_lo * be:g_hi * be], self.params)
+        return self._fragment(st, arr, g_lo, nb)
+
+    def _finalize(self, curr: np.ndarray,
+                  dev: DeviceEncoded) -> StepFragment:
+        """``finalize_step`` over this rank's blocks and exceptions (the
+        only ones `_device_encode` keeps): block for block byte-identical
+        to the single-process step."""
+        st = super()._finalize(curr, dev)
+        lay = self._layout(st.n, st.b_bits)
+        return self._fragment(st, curr, lay.first_block(self.group.first),
+                              lay.nblocks, dev.enc.exc_block_counts)
+
+    def _fragment(self, st: CompressedStep, arr: np.ndarray,
+                  block_start: int, n_blocks: int,
+                  counts: Optional[np.ndarray] = None) -> StepFragment:
+        """`st`, finalized over this rank's blocks, as its fragment of the
+        step `arr`: ``info`` holds the whole step's attributes (its block
+        count, no exception count), rank 0 alone the centers."""
+        info = step_info(st)
+        del info["n_incompressible"]
+        info.update(total_data_num=arr.size, shape=list(arr.shape),
+                    n_blocks=n_blocks)
+        return StepFragment(
+            is_anchor=st.is_anchor, block_start=block_start, info=info,
+            index_blocks=st.index_blocks,
+            centers=None if st.is_anchor or self.rank else st.centers,
+            incomp_values=st.incomp_values, incomp_block_counts=counts,
+            block_codecs=st.block_codecs,
+            meta=dict(st.meta, rank=self.rank, num_ranks=self.num_ranks))
 
     def save_series(self, path: str, arrays, names=None, *,
                     generation: Optional[int] = None,

@@ -32,7 +32,7 @@ STEP_TELEMETRY_KEYS = ("analyze_s", "encode_s", "exceptions_s", "entropy_s",
                        "entropy_ratio", "codec", "device_entropy")
 
 # Canonical per-read telemetry keys (``meta["telemetry_read"]``, written
-# by ``core.compress._record_read``).  Mirrors the encode taxonomy on the
+# by ``core.compress.record_read``).  Mirrors the encode taxonomy on the
 # decode side and -- like STEP_TELEMETRY_KEYS -- is identical across the
 # single-device, sharded, and anchor read paths.
 READ_TELEMETRY_KEYS = ("entropy_s", "dequant_s", "patch_s", "fetch_s",

@@ -1210,7 +1210,7 @@ def test_cuda_every_sync_of_a_delta_step_is_a_sync_span(cuda):
     comp.add(series[0])
     comp.add(series[1])                     # builds and warms the kernels
     torch.cuda.synchronize()
-    stage_code = compress._sync.__code__
+    stage_code = compress.stage_sync.__code__
     waits = []                  # ((innermost span, its t0), stage sync)
 
     def hook(message, category, filename, lineno, file=None, line=None):

@@ -38,6 +38,7 @@ from repro_torch.distributed.pipeline import (  # noqa: E402
     MultiProcessCompressor, ShardedCompressor, ShardedDecompressor)
 from repro_torch.faults.errors import CommitTimeoutError  # noqa: E402
 from repro_torch.launch import distributed as ld  # noqa: E402
+from repro_torch.obs import telemetry  # noqa: E402
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 SRC = os.path.join(ROOT, "src")
@@ -128,6 +129,56 @@ def test_sharded_matches_single_device(shards, chain):
         assert got[1].meta["pipeline"] == "sharded"
         np.testing.assert_array_equal(
             state, repro_torch.decompress_series(got, device="cpu")[-1])
+
+
+SHELLS = {
+    "single": lambda p, overlap: repro_torch.TemporalCompressor(
+        p, overlap=overlap, device="cpu"),
+    "sharded1": lambda p, overlap: ShardedCompressor(_cpu(1), p,
+                                                     overlap=overlap),
+    "sharded3": lambda p, overlap: ShardedCompressor(_cpu(3), p,
+                                                     overlap=overlap),
+}
+
+
+@pytest.mark.parametrize("make", SHELLS.values(), ids=list(SHELLS))
+def test_every_compressor_runs_the_one_step_loop(make):
+    """The single-device and the sharded compressors (1 and 3 shards) run
+    the one step loop of ``core.stream``: the first add, and the first
+    after ``reset()``, is an anchor; ``overlap=True`` gives the serial
+    blobs; ``reference_state()`` is the decompressed last step; each step
+    is one ``compress.step`` span holding its encode; and ``close()``
+    twice is harmless."""
+    arrays = _series(steps=3)
+    p = repro_torch.NumarckParams(block_bytes=1024)
+    c = make(p, False)
+    with telemetry.capture() as reg:
+        serial = [c.add(a) for a in arrays]
+    assert [s.is_anchor for s in serial] == [True, False, False]
+    steps = [r for r in reg.spans if r.name == "compress.step"]
+    assert len(steps) == len(arrays)
+    assert all(r.depth == 0 for r in steps)
+    encode = [r for r in reg.spans if r.name.startswith("encode.")]
+    assert encode and all(sum(s.t0 <= r.t0 <= r.t1 <= s.t1 for s in steps)
+                          == 1 for r in encode)
+    np.testing.assert_array_equal(
+        c.reference_state(),
+        repro_torch.decompress_series(serial, device="cpu")[-1])
+    c.reset()
+    assert c.reference_state() is None
+    assert c.add(arrays[1]).is_anchor and not c.add(arrays[2]).is_anchor
+    c.close()
+    c.close()
+    ov = make(p, True)
+    try:
+        overlapped = ov.compress_series(arrays)
+        _assert_same(overlapped, serial)
+        np.testing.assert_array_equal(
+            ov.reference_state(),
+            repro_torch.decompress_series(overlapped, device="cpu")[-1])
+    finally:
+        ov.close()
+    ov.close()
 
 
 @pytest.mark.parametrize("fixed_domain", [False, True])
@@ -314,7 +365,7 @@ def test_launch_environment():
 
 def _anchor_fragments(arr: np.ndarray, num_ranks: int):
     """A hand-made lossless anchor split across ranks, with the block
-    ownership of MultiProcessCompressor._anchor_fragment."""
+    ownership of MultiProcessCompressor._finalize_anchor."""
     flat = arr.reshape(-1)
     slices = tpipe.block_slices(flat.size, 8)
     nb = len(slices)

@@ -35,6 +35,11 @@ RANKS, N, STEPS = 4, 30_717, 4
 # it, one block a rank ending on the shard's edge (the last shard padded),
 # as in the four-rank CMIP cell.
 LAYOUTS = {"straddling": 1024, "shrunk": 1 << 20}
+# Steps that each rank's host coder codes, 1 KB blocks: a host codec, and
+# the device codec with its device stage off.  Not in LAYOUTS, whose tests
+# hold the device route.
+HOST_CODED = {"zlib": dict(codec="zlib"),
+              "rans_on_host": dict(codec="rans", device_entropy=False)}
 MAX_BINS = 4096
 # Each rank's (lo, hi) range ends, per case: ties of -0 and +0 go to the
 # lower rank's zero; an infinite end is a rank with no valid ratio.
@@ -83,6 +88,19 @@ _WORKER = textwrap.dedent("""
                         tele=f.meta.get("telemetry"))
                    for f in frags],
             spans=[(s.name, s.depth, dict(s.attrs)) for s in reg.spans])
+    for name, kw in %(host_coded)r.items():
+        mp = MultiProcessCompressor(["cpu"], NumarckParams(
+            block_bytes=1024, max_bins=%(max_bins)d, **kw))
+        host.clear()
+        with telemetry.capture():
+            frags = [mp.add_fragment(x) for x in series]
+        mp.close()
+        out[name] = dict(calls=len(host), frags=[
+            dict(start=f.block_start, blobs=f.index_blocks,
+                 codecs=f.block_codecs, exc=f.incomp_values,
+                 counts=f.incomp_block_counts, centers=f.centers,
+                 nbytes=f.nbytes, info=f.info, tele=f.meta["telemetry"])
+            for f in frags])
     # The card path's fold and sum, carried by a gloo subgroup on CPU
     # tensors, beside the host path on the same values.
     import torch
@@ -106,7 +124,8 @@ _WORKER = textwrap.dedent("""
     ld.shutdown()
     with open(sys.argv[2] + ".rank%%d" %% cfg.process_id, "wb") as f:
         pickle.dump(out, f)
-""") % {"layouts": LAYOUTS, "max_bins": MAX_BINS, "ends": ENDS}
+""") % {"layouts": LAYOUTS, "max_bins": MAX_BINS, "ends": ENDS,
+       "host_coded": HOST_CODED}
 
 
 def _series():
@@ -139,7 +158,7 @@ def fleet(tmp_path_factory):
         with open(tmp / f"out.rank{r}", "rb") as f:
             ranks.append(pickle.load(f))
     return series, {name: [rk[name] for rk in ranks] for name in
-                    (*LAYOUTS, "paths")}
+                    (*LAYOUTS, *HOST_CODED, "paths")}
 
 
 def _params(block_bytes):
@@ -225,6 +244,51 @@ def test_no_delta_step_calls_the_host_coder(fleet, layout):
         assert rk["delta_calls"] == 0
 
 
+@pytest.mark.parametrize("case", HOST_CODED)
+def test_host_coded_fragments_equal_the_one_process_driver(fleet, case):
+    """Where each rank's host coder codes its blocks (a host codec, or the
+    device codec with its device stage off), the joined fragments of the
+    anchor and of every delta step are ShardedCompressor's over four
+    shards byte for byte: blobs, per-block codecs, exceptions and their
+    counts, centers, attributes and bytes; each rank calls the host coder
+    once a step."""
+    series, ranks = fleet
+    sc = ShardedCompressor(["cpu"] * RANKS, repro_torch.NumarckParams(
+        block_bytes=1024, max_bins=MAX_BINS, **HOST_CODED[case]))
+    with telemetry.capture():
+        want = sc.compress_series(series)
+    sc.close()
+    for i, st in enumerate(want):
+        frags = [rk["frags"][i] for rk in ranks[case]]
+        assert [b for f in frags for b in f["blobs"]] == st.index_blocks
+        assert {f["info"]["codec"] for f in frags} == {st.codec}
+        assert all(f["info"]["n_blocks"] == st.n_blocks for f in frags)
+        assert all(f["info"]["total_data_num"] == N for f in frags)
+        assert not any(f["tele"]["device_entropy"] for f in frags)
+        for k in ("bytes_in", "bytes_out"):
+            assert sum(f["tele"][k] for f in frags) == \
+                st.meta["telemetry"][k], (i, k)
+        if st.is_anchor:
+            assert sum(f["nbytes"] for f in frags) == \
+                st.nbytes + 8 * (RANKS - 1)
+            continue
+        per = [c for f in frags
+               for c in (f["codecs"] or [f["info"]["codec"]]
+                         * len(f["blobs"]))]
+        assert per == [st.codec_for_block(b) for b in range(st.n_blocks)]
+        np.testing.assert_array_equal(
+            np.concatenate([f["exc"] for f in frags]), st.incomp_values)
+        np.testing.assert_array_equal(
+            np.concatenate([f["counts"] for f in frags]),
+            np.diff(np.append(st.incomp_block_offsets,
+                              st.n_incompressible)))
+        np.testing.assert_array_equal(frags[0]["centers"], st.centers)
+        assert all(f["centers"] is None for f in frags[1:])
+        assert sum(f["nbytes"] for f in frags) == \
+            st.nbytes - 16 + 8 * RANKS
+    assert [rk["calls"] for rk in ranks[case]] == [len(series)] * RANKS
+
+
 def _straddle(layout: str, b: int, rank: int) -> int:
     """Elements of rank ``rank``'s shard that the block straddling its left
     edge takes, by ``reference_mp``'s ownership (0: no block straddles)."""
@@ -239,11 +303,11 @@ def _straddle(layout: str, b: int, rank: int) -> int:
 @pytest.mark.parametrize("rank", range(RANKS))
 def test_every_collective_is_one_span_with_its_bytes(fleet, rank, layout):
     """One coll.range, coll.hist and coll.edge span a delta step under
-    encode.analyze and encode.index, with what the rank sent: the two
-    range ends, the int64 histogram, and to the rank before it the part
-    of its shard that the block straddling the boundary takes (none from
-    rank 0, none where blocks end on the shard edges); each host staging
-    a sync.* span inside.  A fleet of CPU ranks takes gloo throughout."""
+    encode.analyze and encode.index, inside the step's compress.step,
+    with what the rank sent: the two range ends, the int64 histogram, and
+    to the rank before it the part of its shard that the block straddling
+    the boundary takes (none from rank 0, none where blocks end on the
+    shard edges); each host staging a sync.* span inside.  A fleet of CPU ranks takes gloo throughout."""
     _, ranks = fleet
     spans = ranks[layout][rank]["spans"]
     deltas = STEPS - 1
@@ -260,10 +324,10 @@ def test_every_collective_is_one_span_with_its_bytes(fleet, rank, layout):
         for depth, attrs in by[name]:
             assert attrs == {"bytes": sent, "ranks": RANKS,
                              "backend": "gloo"}, name
-            assert depth == 1, name
+            assert depth == 2, name
     assert "coll.scan" not in by
     assert len(by["sync.coll_hist"]) == deltas
-    assert all(d == 2 for d, _ in by["sync.coll_hist"])
+    assert all(d == 3 for d, _ in by["sync.coll_hist"])
     assert len(by.get("sync.coll_edge", [])) == (deltas if head else 0)
 
 

@@ -300,9 +300,10 @@ def test_sharded_driver_same_telemetry_shape_and_blobs(overlap):
     roll, jroll = report.rollup(reg), jreport.rollup(jreg)
     assert set(roll["spans"]) - _port_spans(roll["spans"]) \
         == set(jroll["spans"])
-    assert _port_spans(roll["spans"]) == {"sync.range", "sync.choose_b",
-                                          "choose_b.model", "coll.range",
-                                          "coll.hist", "coll.edge"}
+    assert _port_spans(roll["spans"]) == {"compress.step", "sync.range",
+                                          "sync.choose_b", "choose_b.model",
+                                          "coll.range", "coll.hist",
+                                          "coll.edge"}
     assert roll["counters"] == jroll["counters"]
     for name, agg in jroll["spans"].items():
         assert roll["spans"][name]["count"] == agg["count"], name
